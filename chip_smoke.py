@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--count 200000]
 
@@ -6,18 +6,38 @@ Phases, each printed as it ends:
 
 0. environment: torch / CUDA versions, the card, ``nvidia-smi``'s name and
    power limit, and the TF32 switch (which must be off);
-1. build of the CUDA pairwise-distance kernel from ``csrc/`` (nvcc);
-2. the kernel against its plain PyTorch version on the card, for every metric
-   and both modes, at the JAX kernel test's shapes and at the main-path block
-   ``[2048 x 65536 x 100]``, with the median time of both at that block;
-3. ``Hnsw.generate`` over ``--count`` random 100-d unit vectors (numpy seed
+1. build of the CUDA kernels from ``csrc/`` (one nvcc per source, together);
+2. the pairwise-distance kernel against its plain PyTorch version on the
+   card, for every metric and both modes, at the JAX kernel test's shapes and
+   at the main-path block ``[2048 x 65536 x 100]``, with the median time of
+   both at that block, of the one library call that computes the same
+   (``torch.addmm`` for normalized cosine, ``torch.cdist`` for L2) and the
+   least time the card could take;
+3. the binned and folded scan kernels against their plain versions: every
+   metric and both modes at the JAX kernel test's shapes (columns identical,
+   distances within 1e-5), a tie case (first index wins), and the main shapes
+   (``D = 128``, ``tile_c = 4096``, 1,048,576 rows binned, 2,097,152 rows
+   folded into 32 slots; 512 query rows by value, normalized cosine and
+   euclidean), then the median time of kernel and plain version at 4096
+   query rows beside the bound, the last 512 rows of that launch by value
+   too, and the flat scan's other stages (survivor cut, rerank) at the same
+   block;
+4. ``Hnsw.generate`` over ``--count`` random 100-d unit vectors (numpy seed
    42, normalized cosine, default ``BuildParams``, seed 0): build time, layer
    sizes, stochastic recall, the trace summary and the kernel launch counts;
-4. ``Hnsw.search`` of 10,000 held-out vectors at the default
+5. ``Hnsw.search`` of 10,000 held-out vectors at the default
    ``SearchParams``: recall@10 against ``Hnsw.search_exact`` and QPS; then
-   recall@10 of as many corpus rows as queries (``bench.py``'s measure).
+   recall@10 of as many corpus rows as queries (``bench.py``'s measure);
+6. persistence: the index goes to a temporary directory and comes back onto
+   the card; 1,000 queries give identical ids and distances with both;
+7. the flat scan at full width: 2,097,152 x 128 unit vectors and 10,000
+   held-out queries (numpy seed 42, normalized cosine, ``k = 10``,
+   ``oversample = 4``).  On the first 1,048,576 rows ``scan_mode="auto"``
+   must pick the binned kernel, on all rows the folded one; for each,
+   recall@10 of ``search_exact(fast=True)`` against ``search_exact``, QPS of
+   both, the launch counts of one call, and then the other two modes forced.
 
-The second-to-last line is a JSON object describing the kernel; the last is
+The second-to-last line is a JSON object describing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 there is no CPU path.
 """
@@ -26,17 +46,35 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch import BuildParams, DenseSource, Hnsw, Metric
-from parallel_hnsw_tpu_torch.ops import _native, cuda_distance
-from parallel_hnsw_tpu_torch.ops.distance import pairwise_distance
+from parallel_hnsw_tpu_torch import (
+    BuildParams,
+    DenseSource,
+    Hnsw,
+    Metric,
+    deserialize_hnsw,
+    fast_flat_knn,
+    select_scan_mode,
+    serialize_hnsw,
+)
+from parallel_hnsw_tpu_torch import analysis
+from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_scan
+from parallel_hnsw_tpu_torch.ops.distance import batched_distance, pairwise_distance
 from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
 from parallel_hnsw_tpu_torch.utils.trace import TRACER, enable_tracing
+
+# Published peaks of one H100 SXM at its full 700 W: the bounds are stated
+# against them whatever the card's power limit, which is printed beside.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 DIM = 100
 # The JAX kernel test's bound (tests/test_pallas_distance.py), at its shapes.
@@ -57,11 +95,36 @@ HELD_OUT_RECALL_FLOOR = 0.80
 IN_CORPUS_RECALL_FLOOR = 0.85
 STOCHASTIC_RECALL_FLOOR = 0.99
 
+# The flat scan: width, sizes and the floor that catches a broken kernel.
+FLAT_DIM = 128
+FLAT_TILE_C = analysis.FLAT_TILE_C
+FLAT_SLOTS = 32  # folded_scan's default, which fast_flat_knn uses
+FLAT_SIZES = ((1 << 20, "binned"), (1 << 21, "folded"))
+FLAT_RECALL_FLOOR = 0.95
+SCAN_QUERY_BLOCK = 4096  # fast_flat_knn's query block: the kernels' main-path Q
+SCAN_CHECK_ROWS = 512  # query rows held against the plain version at the main shapes
+# Scans at the JAX kernel tests' shapes: unit vectors of D <= 16, so the two
+# sides' f32 sums differ by a few ulps of values <= 4 (the JAX tests' bound).
+SCAN_SMALL_ATOL = 1e-5
+# Main shapes: unit vectors of D = 128; two f32 summation orders of a
+# 128-term dot with partial sums within [-1, 1] differ by at most ~1e-5.
+SCAN_MAIN_ATOL = 2e-5
+PERSIST_QUERIES = 1000
+
 
 def _phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"== phase {name}: {now - t0:.3f} s", flush=True)
     return now
+
+
+def _bound(flops: float, peak_flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of operations over the
+    peak rate for their type and bytes (inputs read once, outputs written
+    once) over the memory rate."""
+    by_ops, by_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
 
 
 def _median_ms(fn, reps: int = 10) -> float:
@@ -121,8 +184,301 @@ def check_kernel(device) -> dict:
         timing[metric] = (min(k1, k2), min(p1, p2))
         print(f"time at main-path block {metric.value}: kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.4f} / {p2:.4f} ms")
+    # One library call per metric, timed here and used nowhere in the port:
+    # torch.addmm with a broadcast 0.5 computes 0.5 - 0.5 * x @ y.T
+    # (normalized cosine; alpha = -1 and a 1 or 0 give cosine and dot) in one
+    # cuBLAS call, torch.cdist the euclidean distance.
+    half = torch.full((), 0.5, device=device)
+    addmm = lambda: torch.addmm(half, x, y.T, beta=1.0, alpha=-0.5)
+    addmm_err = float((addmm() - pairwise_distance(x, y, Metric.NORMALIZED_COSINE)).abs().max())
+    assert addmm_err <= BLOCK_ATOL, f"torch.addmm is not the same function: {addmm_err}"
+    addmm_ms = min(_median_ms(addmm), _median_ms(addmm))
+    cdist_ms = _median_ms(lambda: torch.cdist(x, y))
+    q, c = MAIN_BLOCK
+    bound = _bound(2.0 * q * c * DIM, PEAK_FP32_FLOPS, 4.0 * (q * DIM + c * DIM + q * c))
     ms, plain_ms = timing[Metric.NORMALIZED_COSINE]
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    l2_ms, l2_plain_ms = timing[Metric.EUCLIDEAN]
+    print(f"pairwise_distance at {q} x {c} x {DIM}: bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}; normalized cosine kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.addmm {addmm_ms:.4f} ms; euclidean kernel {l2_ms:.4f} ms, plain "
+          f"{l2_plain_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": addmm_ms, "library": "torch.addmm",
+            "metric": Metric.NORMALIZED_COSINE.value,
+            "l2_ms": l2_ms, "l2_plain_ms": l2_plain_ms, "l2_library_ms": cdist_ms,
+            "l2_library": "torch.cdist"}
+
+
+def _scan_small_cases(device) -> float:
+    """Both scans against their plain versions at the JAX kernel tests'
+    shapes, every metric, both modes: columns identical, distances close."""
+    rng = np.random.default_rng(3)
+
+    def unit(n, d):
+        a = rng.normal(size=(n, d)).astype(np.float32)
+        return torch.as_tensor(a / np.linalg.norm(a, axis=1, keepdims=True), device=device)
+
+    # (Q, C, D, tile_c, n_slots): n_slots None = binned
+    shapes = [(16, 300, 8, 256, None), (16, 1500, 8, 256, 4), (24, 3000, 16, 256, 8)]
+    max_err = 0.0
+    for q, c, d, tile_c, n_slots in shapes:
+        x, y = unit(q, d), unit(c, d)
+        for metric in Metric:
+            for exact in (True, False):
+                if n_slots is None:
+                    name = "binned_scan"
+                    got = cuda_scan.cuda_binned_scan(x, y, metric, tile_c=tile_c, exact=exact)
+                    want = cuda_scan.plain_binned_scan(x, y, metric, tile_c=tile_c, exact=exact)
+                else:
+                    name = "folded_scan"
+                    got = cuda_scan.cuda_folded_scan(x, y, metric, tile_c=tile_c,
+                                                     n_slots=n_slots, exact=exact)
+                    want = cuda_scan.plain_folded_scan(x, y, metric, tile_c=tile_c,
+                                                       n_slots=n_slots, exact=exact)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(want[0])
+                assert torch.equal(torch.isfinite(got[0]), fin), f"{name}: +inf bins differ"
+                err = float((got[0][fin] - want[0][fin]).abs().max())
+                same = bool(torch.equal(got[1], want[1]))
+                max_err = max(max_err, err)
+                print(f"{name} {q}x{d}/{c}x{d} tile_c={tile_c} n_slots={n_slots} {metric.value} "
+                      f"exact={exact}: max_abs_err={err:.3e} (atol {SCAN_SMALL_ATOL:.0e}), "
+                      f"columns identical: {same}")
+                assert err <= SCAN_SMALL_ATOL, f"{name} disagrees with its plain version: {err}"
+                assert same, f"{name} reports other columns than its plain version"
+
+    # ties: class l holds the same row eight times; the first group of each
+    # tile, and the first tile of each slot, must win
+    base = unit(128, 8)
+    y, x = torch.cat([base] * 8), unit(6, 8)
+    lane = torch.arange(128, device=device)
+    for exact in (True, False):
+        for metric in (Metric.NORMALIZED_COSINE, Metric.SQUARED_EUCLIDEAN):
+            cols = cuda_scan.cuda_binned_scan(x, y, metric, tile_c=256, exact=exact)[1]
+            want = (torch.arange(4, device=device)[:, None] * 256 + lane).reshape(1, -1)
+            assert torch.equal(cols, want.expand(6, -1).int()), "binned tie: not the first index"
+            cols = cuda_scan.cuda_folded_scan(x, y, metric, tile_c=256, n_slots=2, exact=exact)[1]
+            want = (torch.arange(2, device=device)[:, None] * 512 + lane).reshape(1, -1)
+            assert torch.equal(cols, want.expand(6, -1).int()), "folded tie: not the first tile"
+    # torch.min on the card, for the record (the plain versions do not rest on it)
+    t = torch.tensor([[3.0, 1.0, 1.0, 2.0, 1.0]], device=device).expand(4096, -1).contiguous()
+    print(f"ties: first index wins in both kernels; torch.min(dim) picks index "
+          f"{sorted(set(torch.min(t, dim=1).indices.tolist()))} of [3, 1, 1, 2, 1]")
+    return max_err
+
+
+def _distance_at(x, y, cols, metric, rows_per_pass: int = 32) -> torch.Tensor:
+    """Plain distances ``[Q, B]`` of ``x[q]`` to ``y[cols[q, b]]``."""
+    out = []
+    for r in range(0, x.shape[0], rows_per_pass):
+        picked = y[cols[r : r + rows_per_pass].long()].float()
+        out.append(batched_distance(x[r : r + rows_per_pass].float(), picked, metric))
+    return torch.cat(out)
+
+
+def _check_by_value(name, got, want, x, y, metric, what) -> float:
+    """Kernel bins ``got`` against plain bins ``want`` of the same rows, by
+    value: two summation orders may swap the columns of near-ties, so the
+    kernel's bins must be close to the plain bins and the plain distance AT
+    THE COLUMN THE KERNEL REPORTED close to the plain class minimum."""
+    (got_d, got_c), (want_d, want_c) = got, want
+    assert bool(torch.isfinite(want_d).all()) and bool(torch.isfinite(got_d).all())
+    assert int(got_c.min()) >= 0 and int(got_c.max()) < y.shape[0]
+    err = float((got_d - want_d).abs().max())
+    at_col = float((_distance_at(x, y, got_c, metric) - want_d).abs().max())
+    same = float((got_c == want_c).float().mean())
+    print(f"{name} main shape {what}: {x.shape[0]} x {y.shape[0]} x {y.shape[1]}, "
+          f"bins {tuple(got_d.shape)}: max_abs_err={err:.3e}, plain distance at the "
+          f"kernel's column vs plain minimum {at_col:.3e} (atol {SCAN_MAIN_ATOL:.0e}), "
+          f"identical columns {same:.6f}")
+    assert err <= SCAN_MAIN_ATOL, f"{name} disagrees with its plain version: {err}"
+    assert at_col <= SCAN_MAIN_ATOL, f"{name} reports columns that are not minima: {at_col}"
+    return max(err, at_col)
+
+
+def _scan_main_case(name, scan, plain, x, y, metric) -> dict:
+    """One scan at a main shape, both modes.  The first 512 query rows
+    against the plain version by value, in ``metric`` and in euclidean (the
+    norms, the clamp and the square root); the times at 4096 rows; then the
+    last 512 rows of a 4096-row launch by value, so the far row tiles of the
+    timed grid are held too."""
+    out = {}
+    for exact in (True, False):
+        xs, ys = (x, y) if exact else (x.to(torch.bfloat16), y.to(torch.bfloat16))
+        head, tail = xs[:SCAN_CHECK_ROWS], xs[SCAN_QUERY_BLOCK - SCAN_CHECK_ROWS : SCAN_QUERY_BLOCK]
+        errs = []
+        for m in (metric, Metric.EUCLIDEAN):
+            errs.append(_check_by_value(
+                name, scan(head, ys, m, exact=exact), plain(head, ys, m, exact=exact),
+                head, ys, m, f"{m.value} exact={exact} first rows"))
+        # plain, kernel, kernel, plain
+        xq = xs[:SCAN_QUERY_BLOCK]
+        p1 = _median_ms(lambda: plain(xq, ys, metric, exact=exact), reps=3)
+        k1 = _median_ms(lambda: scan(xq, ys, metric, exact=exact))
+        k2 = _median_ms(lambda: scan(xq, ys, metric, exact=exact))
+        p2 = _median_ms(lambda: plain(xq, ys, metric, exact=exact), reps=3)
+        l2_ms = _median_ms(lambda: scan(xq, ys, Metric.EUCLIDEAN, exact=exact), reps=5)
+        full_d, full_c = scan(xq, ys, metric, exact=exact)
+        errs.append(_check_by_value(
+            name, (full_d[-SCAN_CHECK_ROWS:], full_c[-SCAN_CHECK_ROWS:]),
+            plain(tail, ys, metric, exact=exact), tail, ys, metric,
+            f"{metric.value} exact={exact} last rows of the {SCAN_QUERY_BLOCK}-row launch"))
+        q, (c, d) = xq.shape[0], ys.shape
+        bins = full_d.shape[1]
+        bound = _bound(2.0 * q * c * d, PEAK_FP32_FLOPS if exact else PEAK_BF16_FLOPS,
+                       xs.element_size() * (q * d + c * d) + 2 * 4.0 * q * bins)
+        print(f"{name} time at {q} x {c} x {d} exact={exact}: kernel {k1:.3f} / {k2:.3f} ms "
+              f"({2.0 * q * c * d / min(k1, k2) / 1e9:.2f} TFLOP/s), plain {p1:.3f} / {p2:.3f} ms, "
+              f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']}; euclidean kernel "
+              f"{l2_ms:.3f} ms")
+        out[exact] = {"max_abs_err": max(errs), "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "l2_ms": l2_ms, **bound}
+    # the main path runs the fast mode; the exact mode's numbers ride along
+    return {**out[False], "library_ms": None, "mode": "fast (bf16 in, tensor cores, f32 accumulate)",
+            "max_abs_err": max(out[True]["max_abs_err"], out[False]["max_abs_err"]),
+            "exact_ms": out[True]["ms"], "exact_plain_ms": out[True]["plain_ms"],
+            "exact_bound_ms": out[True]["bound_ms"], "exact_l2_ms": out[True]["l2_ms"]}
+
+
+def check_scan_kernels(device, vecs: torch.Tensor) -> dict:
+    """``vecs``: the flat phase's unit vectors, corpus rows first, the
+    held-out queries last."""
+    small_err = _scan_small_cases(device)
+    metric = Metric.NORMALIZED_COSINE
+    x = vecs[FLAT_SIZES[1][0] :][:SCAN_QUERY_BLOCK].contiguous()
+    binned = _scan_main_case(
+        "binned_scan",
+        lambda a, b, m, exact: cuda_scan.cuda_binned_scan(a, b, m, tile_c=FLAT_TILE_C, exact=exact),
+        lambda a, b, m, exact: cuda_scan.plain_binned_scan(a, b, m, tile_c=FLAT_TILE_C, exact=exact),
+        x, vecs[: FLAT_SIZES[0][0]], metric)
+    folded = _scan_main_case(
+        "folded_scan",
+        lambda a, b, m, exact: cuda_scan.cuda_folded_scan(a, b, m, tile_c=FLAT_TILE_C,
+                                                          n_slots=FLAT_SLOTS, exact=exact),
+        lambda a, b, m, exact: cuda_scan.plain_folded_scan(a, b, m, tile_c=FLAT_TILE_C,
+                                                           n_slots=FLAT_SLOTS, exact=exact),
+        x, vecs[: FLAT_SIZES[1][0]], metric)
+    for entry in (binned, folded):
+        entry["max_abs_err"] = max(entry["max_abs_err"], small_err)
+
+    # the flat scan's other stages at one 4096-query block, beside the kernels
+    k_scan = 40
+    for (rows, mode), kernel in zip(FLAT_SIZES, (binned, folded)):
+        source = DenseSource(vecs[:rows])
+        xb, yb = x.to(torch.bfloat16), source.vectors.to(torch.bfloat16)
+        # the dispatches, at their defaults, as fast_flat_knn calls them
+        scan = cuda_scan.binned_scan if mode == "binned" else cuda_scan.folded_scan
+        bd, bc = scan(xb, yb, metric, tile_c=FLAT_TILE_C, exact=False)
+        cut_ms = _median_ms(lambda: analysis._cut_survivors(bd, bc, 0, k_scan))
+        cand = analysis._cut_survivors(bd, bc, 0, k_scan)[0]
+        rerank_ms = _median_ms(lambda: analysis._rerank(source, x, cand, metric, 10))
+        cast_ms = _median_ms(lambda: source.vectors.to(torch.bfloat16))
+        print(f"flat scan stages at {rows} rows, one {SCAN_QUERY_BLOCK}-query block ({mode}): "
+              f"kernel {kernel['ms']:.3f} ms, survivor cut (top-{k_scan} of {bd.shape[1]} bins + "
+              f"sort) {cut_ms:.3f} ms, rerank (gather + distances + sort) {rerank_ms:.3f} ms; "
+              f"bf16 cast of the corpus, once per call, {cast_ms:.3f} ms")
+        kernel.update(cut_ms=cut_ms, rerank_ms=rerank_ms, corpus_cast_ms=cast_ms)
+    return {"binned_scan": binned, "folded_scan": folded}
+
+
+def _timed_s(fn, reps: int = 3):
+    """``(result, median seconds)`` of ``fn`` over ``reps`` runs after a warm-up."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    return out, float(np.median(times))
+
+
+def _zero_launches() -> None:
+    for counts in (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def flat_scan_phase(vecs: torch.Tensor) -> dict:
+    """The flat-scan path at full width; returns each kernel's launch count
+    in ONE pass of the path: one ``search_exact(fast=True)`` call per size
+    for the scans, one ``search_exact`` call per size for the pairwise
+    kernel, the counts set to 0 just before each call and read just after."""
+    metric, k, oversample = Metric.NORMALIZED_COSINE, 10, 4
+    queries = vecs[FLAT_SIZES[1][0] :]
+    assert queries.shape == (QUERIES, FLAT_DIM)
+    query_blocks = -(-QUERIES // SCAN_QUERY_BLOCK)
+    launches = {"binned": 0, "folded": 0, "pairwise_distance": 0}
+    indexes = []
+    for rows, want_mode in FLAT_SIZES:
+        index = Hnsw([], DenseSource(vecs[:rows]), metric)
+        indexes.append(index)
+        mode = select_scan_mode(rows)
+        assert mode == want_mode, f"auto mode at {rows} rows is {mode}, not {want_mode}"
+        other = "folded" if want_mode == "binned" else "binned"
+        _zero_launches()
+        index.search_exact(queries, k=k)
+        assert not any(cuda_scan.LAUNCHES.values()), "the exact scan must not run the scan kernels"
+        launches["pairwise_distance"] += sum(cuda_distance.LAUNCHES.values())
+        _zero_launches()
+        index.search_exact(queries, k=k, fast=True, oversample=oversample)
+        ran = dict(cuda_scan.LAUNCHES)
+        assert ran == {want_mode: query_blocks, other: 0}, (
+            f"auto mode at {rows} rows launched {ran}, not {query_blocks} {want_mode} scans")
+        assert not any(cuda_distance.LAUNCHES.values()), "the fast scan ran the pairwise kernel"
+        launches[want_mode] += ran[want_mode]
+        (gt_ids, gt_d), exact_s = _timed_s(lambda: index.search_exact(queries, k=k))
+        (ids, dists), fast_s = _timed_s(
+            lambda: index.search_exact(queries, k=k, fast=True, oversample=oversample))
+        assert ids.shape == (QUERIES, k) and ids.dtype == torch.int32
+        assert bool(torch.isfinite(dists).all()), "non-finite flat-scan distances"
+        assert bool((dists[:, 1:] >= dists[:, :-1]).all()), "flat-scan distances not ascending"
+        assert int(ids.min()) >= 0 and int(ids.max()) < rows
+        recall = _recall_at_10(ids, gt_ids)
+        # a survivor's reranked distance is the exact scan's distance to that row
+        hit = ids == gt_ids
+        drift = float((dists - gt_d)[hit].abs().max())
+        print(f"flat scan {rows} x {FLAT_DIM}, auto mode {mode}: recall@10 {recall:.5f}, fast "
+              f"{QUERIES / fast_s:.1f} QPS ({fast_s:.4f} s), exact {QUERIES / exact_s:.1f} QPS "
+              f"({exact_s:.4f} s), launches of one call {ran}, distance drift on shared ids "
+              f"{drift:.2e}")
+        assert recall >= FLAT_RECALL_FLOOR, f"flat-scan recall@10 {recall} below {FLAT_RECALL_FLOOR}"
+        assert drift <= 1e-5, f"reranked distances differ from the exact scan's: {drift}"
+    print(f"launches in one pass of the flat-scan path: {launches}")
+
+    # the modes that auto did not pick, forced, for the record of the cut-offs
+    for index, (rows, auto_mode) in zip(indexes, FLAT_SIZES):
+        gt_ids = index.search_exact(queries, k=k)[0]
+        for mode in ("exhaustive", "binned", "folded"):
+            (ids, _), secs = _timed_s(lambda: fast_flat_knn(
+                index.source, queries, metric, k, oversample, scan_mode=mode))
+            print(f"flat scan {rows} x {FLAT_DIM} forced {mode}{' (auto)' if mode == auto_mode else ''}: "
+                  f"{QUERIES / secs:.1f} QPS ({secs:.4f} s), recall@10 {_recall_at_10(ids, gt_ids):.5f}")
+    return launches
+
+
+def persistence_phase(hnsw: Hnsw, queries: torch.Tensor, device) -> None:
+    """Serialize, read back onto the card, and search with both."""
+    tmp = tempfile.mkdtemp(prefix="hnsw_smoke_")
+    try:
+        ts = time.perf_counter()
+        serialize_hnsw(hnsw, tmp)
+        tw = time.perf_counter()
+        loaded = deserialize_hnsw(tmp)
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp)
+    assert loaded.source.device.type == "cuda" and loaded.layers[0].nodes.device.type == "cuda"
+    assert loaded.metric == hnsw.metric and loaded.build_parameters == hnsw.build_parameters
+    assert torch.equal(loaded.source.vectors, hnsw.source.vectors)
+    for a, b in zip(hnsw.layers, loaded.layers):
+        assert torch.equal(a.nodes, b.nodes) and torch.equal(a.neighbors, b.neighbors)
+    (i1, d1), (i2, d2) = hnsw.search(queries), loaded.search(queries)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2), "the loaded index answers differently"
+    print(f"persistence: wrote in {tw - ts:.3f} s, read in {tr - tw:.3f} s; "
+          f"{queries.shape[0]} queries identical in ids and distances")
 
 
 def main() -> None:
@@ -151,17 +507,22 @@ def main() -> None:
     print(_native.build_log.strip() or "(library already built)")
     t = _phase("1 kernel build", t)
 
-    # 2. kernel against its plain version
+    # 2. pairwise-distance kernel against its plain version
     kernel = check_kernel(device)
-    t = _phase("2 kernel check", t)
+    t = _phase("2 pairwise kernel check", t)
 
-    # 3. build
+    # 3. scan kernels against their plain versions
+    flat_vecs = random_unit_corpus(FLAT_SIZES[1][0] + QUERIES, FLAT_DIM, seed=42).vectors
+    assert flat_vecs.device.type == "cuda", "the default device is not the card"
+    scans = check_scan_kernels(device, flat_vecs)
+    t = _phase("3 scan kernel check", t)
+
+    # 4. build
     vecs = random_unit_corpus(args.count + QUERIES, DIM, seed=42, device=device).vectors
     source = DenseSource(vectors=vecs[: args.count])
     queries = vecs[args.count :]
     enable_tracing(log=None)
-    for mode in cuda_distance.LAUNCHES:
-        cuda_distance.LAUNCHES[mode] = 0
+    _zero_launches()
     tb = time.perf_counter()
     hnsw = Hnsw.generate(source, bp=BuildParams(), metric=Metric.NORMALIZED_COSINE, seed=0, improve=True)
     torch.cuda.synchronize()
@@ -176,9 +537,9 @@ def main() -> None:
     stochastic = hnsw.stochastic_recall()
     print(f"stochastic recall: {stochastic}")
     hnsw.assert_invariants()
-    t = _phase("3 build", t)
+    t = _phase("4 build", t)
 
-    # 4. search
+    # 5. search
     gt_ids, gt_d = hnsw.search_exact(queries, k=10)
     assert gt_ids.shape == (QUERIES, 10) and bool(torch.isfinite(gt_d).all())
     ids, dists = hnsw.search(queries)  # warm-up
@@ -203,17 +564,45 @@ def main() -> None:
     assert stochastic >= STOCHASTIC_RECALL_FLOOR, f"stochastic recall {stochastic} below {STOCHASTIC_RECALL_FLOOR}"
     launches = sum(cuda_distance.LAUNCHES.values())
     print(f"launches in the main path: {cuda_distance.LAUNCHES}")
-    _phase("4 search", t)
+    t = _phase("5 search", t)
+
+    # 6. persistence
+    persistence_phase(hnsw, queries[:PERSIST_QUERIES], device)
+    del hnsw
+    t = _phase("6 persistence", t)
+
+    # 7. flat scan
+    flat_launches = flat_scan_phase(flat_vecs)
+    _phase("7 flat scan", t)
     _phase("total", t0)
 
-    print(json.dumps({"kernels": [{
-        "name": "pairwise_distance",
-        "route": "cuda",
-        "source": "parallel_hnsw_tpu_torch/csrc/pairwise_distance.cu",
-        "replaces": "parallel_hnsw_tpu/ops/pallas_distance.py:29",
-        "launches": launches,
-        **kernel,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "pairwise_distance",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/pairwise_distance.cu",
+            "replaces": "parallel_hnsw_tpu/ops/pallas_distance.py:29",
+            "launches": launches,
+            "launches_flat_scan_path": flat_launches["pairwise_distance"],
+            **kernel,
+        },
+        {
+            "name": "binned_scan",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/binned_scan.cu",
+            "replaces": "parallel_hnsw_tpu/ops/pallas_scan.py:42",
+            "launches": flat_launches["binned"],
+            **scans["binned_scan"],
+        },
+        {
+            "name": "folded_scan",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/binned_scan.cu",
+            "replaces": "parallel_hnsw_tpu/ops/pallas_scan.py:161",
+            "launches": flat_launches["folded"],
+            **scans["folded_scan"],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,24 +2,41 @@
 
 The dense build-and-search path of the JAX package, on tensors: bulk ladder
 build, the improve/promote self-repair loop, batched beam search and exact
-brute-force top-k.  The pairwise-distance kernel is hand-written CUDA for
-Hopper (``csrc/pairwise_distance.cu``), built with ``nvcc`` at first use.
-A CUDA tensor always goes through the kernel; a CPU tensor takes the plain
-PyTorch version.  Imports torch and numpy, never jax.
+brute-force top-k; the flat-scan path (``fast_flat_knn``,
+``Hnsw.search_exact(fast=True)``); and dense index persistence (``io``, the
+JAX package's directory format).  The kernels are hand-written CUDA for
+Hopper, built with ``nvcc`` at first use: pairwise distances
+(``csrc/pairwise_distance.cu``) and the binned and folded distance scans
+(``csrc/binned_scan.cu``).  A CUDA tensor always goes through a kernel; a CPU
+tensor takes the plain PyTorch version.  Entry points that create tensors
+place them on the card unless the caller names a device.  Imports torch and
+numpy, never jax.
 
 Quick start::
 
     from parallel_hnsw_tpu_torch import Hnsw, Metric, BuildParams
     from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
 
-    source = random_unit_corpus(200_000, 100, device="cuda")
+    source = random_unit_corpus(200_000, 100)  # on the card
     hnsw = Hnsw.generate(source, metric=Metric.NORMALIZED_COSINE)
     ids, dists = hnsw.search(queries)
+    ids, dists = hnsw.search_exact(queries, k=10, fast=True)  # flat scan
+    serialize_hnsw(hnsw, "index_dir"); hnsw = deserialize_hnsw("index_dir")
 """
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, MATCH_EPSILON
 from parallel_hnsw_tpu_torch.graph import DenseSource, Layer
+from parallel_hnsw_tpu_torch.analysis import brute_force_knn, fast_flat_knn, select_scan_mode
 from parallel_hnsw_tpu_torch.index import Hnsw
+from parallel_hnsw_tpu_torch.io import (
+    IndexNotFound,
+    SerializationError,
+    deserialize_hnsw,
+    deserialize_source,
+    read_index_meta,
+    serialize_hnsw,
+    serialize_source,
+)
 from parallel_hnsw_tpu_torch.ops.distance import Metric
 from parallel_hnsw_tpu_torch.params import BuildParams, OptimizationParams, SearchParams
 from parallel_hnsw_tpu_torch.progress import CallbackProgressMonitor, Interrupt, ProgressMonitor
@@ -38,4 +55,14 @@ __all__ = [
     "ProgressMonitor",
     "CallbackProgressMonitor",
     "Interrupt",
+    "brute_force_knn",
+    "fast_flat_knn",
+    "select_scan_mode",
+    "serialize_hnsw",
+    "deserialize_hnsw",
+    "serialize_source",
+    "deserialize_source",
+    "read_index_meta",
+    "SerializationError",
+    "IndexNotFound",
 ]

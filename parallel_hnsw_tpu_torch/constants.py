@@ -22,3 +22,8 @@ DIST_DTYPE = torch.float32
 # Epsilon used by self-match tests (reference: src/search.rs:173-187).  It
 # needs full fp32 distances: TF32 matmuls (~1e-3 relative) would break it.
 MATCH_EPSILON: float = 1e-5
+
+# Cap on any transient [rows, cols] f32 matrix that a blocked scan or the
+# plain version of a scan kernel may hold at once; kept at the JAX package's
+# value so both packages cut the same blocks (to be measured again on the GPU).
+MATRIX_BYTE_BUDGET: int = 512 << 20

@@ -23,6 +23,7 @@ from parallel_hnsw_tpu_torch.graph import DenseSource, make_layer
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.ops.distance import Metric
 from parallel_hnsw_tpu_torch.params import build_params_from_dict, params_to_dict
+from parallel_hnsw_tpu_torch.utils import device as _device
 
 
 def hnsw_from_numpy(
@@ -30,10 +31,12 @@ def hnsw_from_numpy(
     vectors: np.ndarray,
     metric,
     build_params: Dict[str, Any],
-    device="cpu",
+    device=None,
 ) -> Hnsw:
     """The port's index over ``layers`` (top→bottom ``(nodes, neighbors)``
-    pairs) and the ``[V, D]`` corpus ``vectors``, all placed on ``device``."""
+    pairs) and the ``[V, D]`` corpus ``vectors``, all placed on ``device``
+    (``None``: the card, :func:`utils.device.default_device`)."""
+    device = _device.resolve_device(device)
     source = DenseSource(
         vectors=torch.as_tensor(np.asarray(vectors, dtype=np.float32), device=device)
     )

@@ -17,7 +17,7 @@ import torch
 from parallel_hnsw_tpu_torch import build as _build
 from parallel_hnsw_tpu_torch import optimize as _optimize
 from parallel_hnsw_tpu_torch import promote as _promote
-from parallel_hnsw_tpu_torch.analysis import brute_force_knn
+from parallel_hnsw_tpu_torch.analysis import brute_force_knn, fast_flat_knn
 from parallel_hnsw_tpu_torch.constants import ID_DTYPE
 from parallel_hnsw_tpu_torch.graph import Layer, Source, assert_layer_invariants, source_get
 from parallel_hnsw_tpu_torch.ops.distance import Metric
@@ -167,9 +167,23 @@ class Hnsw:
             self.layers, self.source, self.metric, queries, sp, exclude, query_block
         )
 
-    def search_exact(self, queries: torch.Tensor, k: int = 10, query_block: int = 4096):
+    def search_exact(
+        self,
+        queries: torch.Tensor,
+        k: int = 10,
+        query_block: int = 4096,
+        fast: bool = False,
+        oversample: int = 4,
+    ):
         """Exact top-k by a full blocked scan (no graph traversal), through
-        the pairwise-distance kernel on a CUDA source."""
+        the pairwise-distance kernel on a CUDA source.
+
+        ``fast=True`` is the flat scan of :func:`analysis.fast_flat_knn`: a
+        fast-precision pass (the binned or folded scan kernel from 200k rows
+        up) that keeps ``oversample * k`` survivors, then a full-precision
+        rerank restores exact ordering before the cut to ``k``."""
+        if fast:
+            return fast_flat_knn(self.source, queries, self.metric, k, oversample, query_block)
         return brute_force_knn(self.source, queries, self.metric, k, query_block)
 
     def search_ids(self, vector_ids, sp=None, exclude_self: bool = False):

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``) through ctypes.
 
 The library is compiled at first use with ``nvcc`` from the package's own
-sources into ``parallel_hnsw_tpu_torch/_build/``.  Its file name carries a
-hash of the sources and flags, so an edited source rebuilds.  There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+sources into ``parallel_hnsw_tpu_torch/_build/``: one ``nvcc -c`` per source,
+all started together, then one link.  Its file name carries a hash of the
+sources and flags, so an edited source rebuilds.  There is no fallback: a
+missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,11 +18,14 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "pairwise_distance.cu",)
+SOURCES = (
+    _PKG / "csrc" / "pairwise_distance.cu",
+    _PKG / "csrc" / "binned_scan.cu",
+)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -56,13 +60,30 @@ def _build() -> Path:
             "(set CUDA_HOME or put nvcc on PATH)"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    stem = f"{lib_path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in SOURCES]
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objects)
+    ]
+    outputs = [proc.communicate()[0] for proc in compiles]
+    build_log = "".join(outputs)
+    failed = [src.name for src, proc in zip(SOURCES, compiles) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objects)], capture_output=True, text=True
+    )
+    build_log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see a partial file
+    for obj in objects:
+        obj.unlink()
     return lib_path
 
 
@@ -79,5 +100,16 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        ptr, num = ctypes.c_void_p, ctypes.c_int
+        for name in ("binned_scan_f32", "binned_scan_bf16"):
+            fn = getattr(lib, name)
+            # x, y, outd, outi; q, c, d, tile_c, metric; stream
+            fn.argtypes = [ptr] * 4 + [num] * 5 + [ptr]
+            fn.restype = ctypes.c_int
+        for name in ("folded_scan_f32", "folded_scan_bf16"):
+            fn = getattr(lib, name)
+            # x, y, outt, outi; q, c, d, tile_c, n_slots, n_jj, metric; stream
+            fn.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

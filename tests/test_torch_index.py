@@ -97,7 +97,7 @@ def test_search_exact_matches_jax_brute_force(built):
 
 def test_numpy_round_trip(built):
     _, th, _, queries, _, _ = built
-    back = hnsw_from_numpy(*hnsw_to_numpy(th))
+    back = hnsw_from_numpy(*hnsw_to_numpy(th), device="cpu")
     assert back.metric is th.metric and back.build_parameters == th.build_parameters
     for a, b in zip(back.layers, th.layers):
         assert torch.equal(a.nodes, b.nodes) and torch.equal(a.neighbors, b.neighbors)
@@ -109,7 +109,7 @@ def test_numpy_round_trip(built):
 def test_repair_plumbing_matches_jax_on_identical_graph(built):
     jh, _, corpus, _, _, _ = built
     layers = [(np.asarray(l.nodes), np.asarray(l.neighbors)) for l in jh.layers]
-    th = hnsw_from_numpy(layers, corpus, jh.metric.value, params_to_dict(jh.build_parameters))
+    th = hnsw_from_numpy(layers, corpus, jh.metric.value, params_to_dict(jh.build_parameters), "cpu")
     bottom = th.layer_count - 1
     sp = SearchParams(number_of_candidates=6, upper_layer_candidate_count=6, probe_depth=1)
     want = np.asarray(jh.discover_unreachable_vectors(bottom, JaxSearchParams(**vars(sp))))

@@ -1,0 +1,170 @@
+"""The port's dense persistence against the JAX package's (mirrors the dense
+cases of tests/test_serialize.py): either package reads what the other wrote,
+and both write the same bytes.  Also where the port's entry points place
+their tensors when no device is named."""
+
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parallel_hnsw_tpu import io as jio
+from parallel_hnsw_tpu.graph import DenseSource as JDenseSource, Layer as JLayer
+from parallel_hnsw_tpu.index import Hnsw as JHnsw
+from parallel_hnsw_tpu.params import build_params_from_dict as j_build_params_from_dict
+from parallel_hnsw_tpu_torch import BuildParams, DenseSource, Hnsw, Metric, OptimizationParams
+from parallel_hnsw_tpu_torch import io as tio
+from parallel_hnsw_tpu_torch.convert import hnsw_from_numpy, hnsw_to_numpy
+from parallel_hnsw_tpu_torch.params import params_to_dict
+from parallel_hnsw_tpu_torch.utils import data as tdata
+from parallel_hnsw_tpu_torch.utils import device as tdevice
+
+# one intra-op thread: torch's and XLA's CPU pools contend for the cores
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def built():
+    """One small index, built by the port, as both packages' objects."""
+    source = tdata.random_unit_corpus(120, 8, device="cpu")
+    bp = BuildParams(order=6, neighborhood_size=4, zero_layer_neighborhood_size=8,
+                     optimization=OptimizationParams(recall_proportion=1.0))
+    th = Hnsw.generate(source, None, bp, Metric.NORMALIZED_COSINE, seed=2)
+    layers, vectors, metric, bp_dict = hnsw_to_numpy(th)
+    jh = JHnsw(
+        [JLayer(nodes=jnp.asarray(n), neighbors=jnp.asarray(nb)) for n, nb in layers],
+        JDenseSource(vectors=jnp.asarray(vectors)), metric, j_build_params_from_dict(bp_dict),
+    )
+    assert th.layer_count >= 2
+    return th, jh
+
+
+def _assert_same_index(a: Hnsw, b: Hnsw):
+    assert a.layer_count == b.layer_count and a.metric == b.metric
+    assert a.build_parameters == b.build_parameters
+    for la, lb in zip(a.layers, b.layers):
+        assert la.nodes.dtype == lb.nodes.dtype == torch.int32
+        assert torch.equal(la.nodes, lb.nodes) and torch.equal(la.neighbors, lb.neighbors)
+    assert torch.equal(a.source.vectors, b.source.vectors)
+
+
+def test_round_trip(built, tmp_path):
+    th, _ = built
+    tio.serialize_hnsw(th, tmp_path / "idx")
+    loaded = tio.deserialize_hnsw(tmp_path / "idx", device="cpu")
+    _assert_same_index(th, loaded)
+    q = th.source.vectors[:5]
+    (i1, d1), (i2, d2) = th.search(q), loaded.search(q)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2)
+    assert tio.read_index_meta(tmp_path / "idx")["format_version"] == tio.FORMAT_VERSION
+    src = tio.deserialize_source(tmp_path / "idx" / "comparator", device="cpu")
+    assert torch.equal(src.vectors, th.source.vectors)
+
+
+def test_jax_writes_port_reads(built, tmp_path):
+    th, jh = built
+    jio.serialize_hnsw(jh, tmp_path / "idx", extra_meta={"build_seed": 2})
+    loaded = tio.deserialize_hnsw(tmp_path / "idx", device="cpu")
+    _assert_same_index(th, loaded)
+    assert tio.read_index_meta(tmp_path / "idx")["build_seed"] == 2
+
+
+def test_port_writes_jax_reads(built, tmp_path):
+    th, jh = built
+    tio.serialize_hnsw(th, tmp_path / "idx")
+    loaded = jio.deserialize_hnsw(tmp_path / "idx")
+    assert loaded.layer_count == jh.layer_count and loaded.metric == jh.metric
+    assert loaded.build_parameters == jh.build_parameters
+    for a, b in zip(jh.layers, loaded.layers):
+        np.testing.assert_array_equal(np.asarray(a.nodes), np.asarray(b.nodes))
+        np.testing.assert_array_equal(np.asarray(a.neighbors), np.asarray(b.neighbors))
+    np.testing.assert_array_equal(np.asarray(jh.source.vectors), np.asarray(loaded.source.vectors))
+
+
+def test_both_packages_write_the_same_bytes(built, tmp_path):
+    th, jh = built
+    tio.serialize_hnsw(th, tmp_path / "port", extra_meta={"corpus_count": 120})
+    jio.serialize_hnsw(jh, tmp_path / "jax", extra_meta={"corpus_count": 120})
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*")
+                   if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "port")
+                           for p in (tmp_path / "port").rglob("*") if p.is_file())
+    assert len(files) == 3 * th.layer_count + 3
+    for rel in files:
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
+
+
+def test_layer_files_numbered_from_bottom(built, tmp_path):
+    th, _ = built
+    tio.serialize_hnsw(th, tmp_path / "idx")
+    meta0 = json.loads((tmp_path / "idx" / "layer.meta.0").read_text())
+    assert meta0["node_count"] == th.vector_count == 120
+
+
+def test_missing_comparator(built, tmp_path):
+    th, _ = built
+    tio.serialize_hnsw(th, tmp_path / "idx", store_source=False)
+    with pytest.raises(tio.IndexNotFound):
+        tio.deserialize_hnsw(tmp_path / "idx", device="cpu")
+    assert issubclass(tio.IndexNotFound, tio.SerializationError)
+    # but works with an externally supplied source, on that source's device
+    loaded = tio.deserialize_hnsw(tmp_path / "idx", source=th.source)
+    _assert_same_index(th, loaded)
+    assert loaded.layers[0].nodes.device == th.source.device
+
+
+def test_meta_is_written_last_and_stale_meta_goes_first(built, tmp_path, monkeypatch):
+    """An overwrite that dies mid-layer leaves no meta behind, so the
+    directory never passes for a complete index."""
+    th, _ = built
+    tio.serialize_hnsw(th, tmp_path / "idx")
+    assert (tmp_path / "idx" / "meta").exists()
+    real, calls = tio._write_array, []
+
+    def dying(path, arr, dtype):
+        calls.append(path.name)
+        if path.name.startswith("layer.neighbors"):
+            raise OSError("disk full")
+        real(path, arr, dtype)
+
+    monkeypatch.setattr(tio, "_write_array", dying)
+    with pytest.raises(OSError):
+        tio.serialize_hnsw(th, tmp_path / "idx")
+    assert calls[0] == "vectors" and not (tmp_path / "idx" / "meta").exists()
+    with pytest.raises(FileNotFoundError):
+        tio.read_index_meta(tmp_path / "idx")
+
+
+def test_pq_and_unknown_sources_are_refused(tmp_path):
+    (tmp_path / "pq").mkdir()
+    (tmp_path / "pq" / "meta").write_text(json.dumps({"kind": "pq", "count": 3, "nsub": 2}))
+    with pytest.raises(tio.SerializationError, match="PQ"):
+        tio.deserialize_source(tmp_path / "pq", device="cpu")
+    (tmp_path / "pq" / "meta").write_text(json.dumps({"kind": "sparse"}))
+    with pytest.raises(tio.SerializationError, match="unknown source kind"):
+        tio.deserialize_source(tmp_path / "pq", device="cpu")
+    with pytest.raises(tio.SerializationError, match="unknown source type"):
+        tio.serialize_source(object(), tmp_path / "other")
+
+
+def test_default_device_is_the_card(built, tmp_path, monkeypatch):
+    """Entry points that create tensors place them on the card unless told
+    otherwise.  No card is needed to see it: the default compares equal to
+    ``torch.device("cuda")``, and with the default redirected to the meta
+    device every such entry point lands there."""
+    assert tdevice.default_device() == torch.device("cuda")
+    assert tdevice.resolve_device(None) == torch.device("cuda")
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    th, _ = built
+    tio.serialize_hnsw(th, tmp_path / "idx")
+    monkeypatch.setattr(tdevice, "default_device", lambda: torch.device("meta"))
+    assert tdata.random_corpus(4, 2).vectors.device.type == "meta"
+    assert tdata.random_unit_corpus(4, 2).vectors.device.type == "meta"
+    moved = hnsw_from_numpy(*hnsw_to_numpy(th))
+    assert moved.source.device.type == "meta" and moved.layers[0].neighbors.device.type == "meta"
+    assert tio.deserialize_source(tmp_path / "idx" / "comparator").vectors.device.type == "meta"
+    loaded = tio.deserialize_hnsw(tmp_path / "idx")
+    assert loaded.source.device.type == "meta" and loaded.layers[-1].nodes.device.type == "meta"
+    assert tdata.random_corpus(4, 2, device="cpu").vectors.device.type == "cpu"

@@ -32,7 +32,7 @@ def graphs():
     corpus, queries = x[:N], x[N:]
     jh = JaxHnsw.generate(JaxSource(jnp.asarray(corpus)), metric="cosine", seed=2, improve=False)
     layers = [(np.asarray(l.nodes), np.asarray(l.neighbors)) for l in jh.layers]
-    th = hnsw_from_numpy(layers, corpus, "cosine", params_to_dict(jh.build_parameters))
+    th = hnsw_from_numpy(layers, corpus, "cosine", params_to_dict(jh.build_parameters), "cpu")
     return jh, th, queries
 
 
