@@ -22,15 +22,31 @@ Phases, each printed as it ends:
    query rows beside the bound, the last 512 rows of that launch by value
    too, and the flat scan's other stages (survivor cut, rerank) at the same
    block;
-4. ``Hnsw.generate`` over ``--count`` random 100-d unit vectors (numpy seed
+4. the row-gather kernel against its plain version (``index_select``),
+   bit for bit: f32, bf16 and int32 rows of the widths the hop gathers, slab
+   rows, 1 to 100,000 indices with repeats and both ends of the table; then
+   the median time of kernel, plain version and ``torch.index_select`` at the
+   hop's shapes (1,572,864 rows of a 100,000 x 128 and of a 200,000 x 100 f32
+   table) beside the bound by bytes;
+5. ``Hnsw.generate`` over ``--count`` random 100-d unit vectors (numpy seed
    42, normalized cosine, default ``BuildParams``, seed 0): build time, layer
    sizes, stochastic recall, the trace summary and the kernel launch counts;
-5. ``Hnsw.search`` of 10,000 held-out vectors at the default
+6. ``Hnsw.search`` of 10,000 held-out vectors at the default
    ``SearchParams``: recall@10 against ``Hnsw.search_exact`` and QPS; then
-   recall@10 of as many corpus rows as queries (``bench.py``'s measure);
-6. persistence: the index goes to a temporary directory and comes back onto
+   recall@10 of as many corpus rows as queries (``bench.py``'s measure), and
+   the row-gather launches of one search pass;
+7. the other traversals on that index: ``search_instrumented`` and
+   ``search.search(adaptive=True)`` (the plain search's ids; for the
+   adaptive one up to near-ties, as its batches shrink), f32 hop slabs (ids
+   and distances identical), cast-only routing without and with slabs
+   (recall@10 within 0.02 of the unrouted search after the rerank),
+   projected routing (``dr=64``), and one plain search pass under
+   ``torch.profiler`` (busy share and device time by kernel); then on a
+   10,000 x 100 index: a build that resumes from its own checkpoint, a
+   mutation that drops the slabs, and ``knn(10)``;
+8. persistence: the index goes to a temporary directory and comes back onto
    the card; 1,000 queries give identical ids and distances with both;
-7. the flat scan at full width: 2,097,152 x 128 unit vectors and 10,000
+9. the flat scan at full width: 2,097,152 x 128 unit vectors and 10,000
    held-out queries (numpy seed 42, normalized cosine, ``k = 10``,
    ``oversample = 4``).  On the first 1,048,576 rows ``scan_mode="auto"``
    must pick the binned kernel, on all rows the folded one; for each,
@@ -46,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import tempfile
@@ -65,8 +82,9 @@ from parallel_hnsw_tpu_torch import (
     serialize_hnsw,
 )
 from parallel_hnsw_tpu_torch import analysis
-from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_scan
+from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_gather, cuda_scan
 from parallel_hnsw_tpu_torch.ops.distance import batched_distance, pairwise_distance
+from parallel_hnsw_tpu_torch.search import search as graph_search
 from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
 from parallel_hnsw_tpu_torch.utils.trace import TRACER, enable_tracing
 
@@ -110,6 +128,18 @@ SCAN_SMALL_ATOL = 1e-5
 # 128-term dot with partial sums within [-1, 1] differ by at most ~1e-5.
 SCAN_MAIN_ATOL = 2e-5
 PERSIST_QUERIES = 1000
+
+# The hop's gather: 8192 queries x 4 beam x 48 neighbors rows per hop, from the
+# JAX gather study's table and from the main path's.
+GATHER_ROWS = 8192 * 4 * 48
+GATHER_TIMED = ((100_000, 128), (200_000, DIM))
+# Held-out search QPS of this script's phase 6 on an NVIDIA H100 80GB HBM3 at
+# 700 W while the hop still gathered with torch indexing; printed beside
+# today's so a slow gather kernel is seen.
+SEARCH_QPS_BEFORE_GATHER_KERNEL = 10_932
+ROUTED_RECALL_SLACK = 0.02
+ADAPTIVE_TOP10_FLOOR = 0.99
+SMALL_COUNT = 10_000
 
 
 def _phase(name: str, t0: float) -> float:
@@ -381,6 +411,72 @@ def check_scan_kernels(device, vecs: torch.Tensor) -> dict:
     return {"binned_scan": binned, "folded_scan": folded}
 
 
+def check_gather_kernel(device) -> dict:
+    """The row-gather kernel against ``plain_row_gather``, bit for bit, then
+    its time at the hop's shapes beside ``torch.index_select`` and the bound."""
+    gen = torch.Generator().manual_seed(5)
+
+    def table(n, dtype, *tail):
+        t = torch.randint(0, 1 << 15, (n, *tail), generator=gen)
+        t = t.to(dtype) if dtype is torch.int32 else (t.float() - 16384.0).to(dtype)
+        return t.to(device)
+
+    tables = [table(20_000, torch.float32, d) for d in (100, 128, 96, 1)]
+    tables += [table(20_000, torch.bfloat16, d) for d in (64, 100, 128)]
+    tables += [table(20_000, torch.int32, m) for m in (24, 48)]
+    tables += [table(2_000, torch.float32, 48, 100), table(2_000, torch.bfloat16, 48, 100)]
+    cases = 0
+    for t in tables:
+        n = t.shape[0]
+        for r in (1, 2047, 2048, 100_000):
+            idx = torch.randint(0, n, (r,), generator=gen, dtype=torch.int32)
+            head = torch.tensor([n - 1, 0, 9, 9], dtype=torch.int32)[:r]  # both ends, a repeat
+            idx[: head.shape[0]] = head
+            idx = idx.to(device)
+            got = cuda_gather.cuda_row_gather(t, idx)
+            if cases == 0:
+                torch.cuda.synchronize()  # a bad address shows here, at the first launch
+            want = cuda_gather.plain_row_gather(t, idx)
+            assert got.dtype == t.dtype and got.shape == (r, *t.shape[1:])
+            assert torch.equal(got, want), (
+                f"row_gather differs from index_select: {t.dtype} {tuple(t.shape)} R={r}")
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"row_gather: {cases} cases (f32 D 100/128/96/1, bf16 64/100/128, int32 24/48, "
+          f"[N, 48, 100] f32 and bf16 slabs; R 1/2047/2048/100000) bit-identical to index_select")
+    del tables
+
+    out = {}
+    for n, d in GATHER_TIMED:
+        t = torch.randn((n, d), generator=gen).to(device)
+        idx = torch.randint(0, n, (GATHER_ROWS,), generator=gen, dtype=torch.int32).to(device)
+        # plain, kernel, kernel, plain; the library call is the plain version's
+        # own index_select without its index cast and reshape
+        p1 = _median_ms(lambda: cuda_gather.plain_row_gather(t, idx))
+        k1 = _median_ms(lambda: cuda_gather.cuda_row_gather(t, idx))
+        k2 = _median_ms(lambda: cuda_gather.cuda_row_gather(t, idx))
+        p2 = _median_ms(lambda: cuda_gather.plain_row_gather(t, idx))
+        lib = _median_ms(lambda: torch.index_select(t, 0, idx))
+        fancy = _median_ms(lambda: t[idx])
+        got, want = cuda_gather.cuda_row_gather(t, idx), torch.index_select(t, 0, idx)
+        assert torch.equal(got, want), f"row_gather differs at {GATHER_ROWS} x {n} x {d}"
+        nbytes = 4.0 * GATHER_ROWS + 4.0 * n * d + 4.0 * GATHER_ROWS * d
+        bound = _bound(0.0, PEAK_FP32_FLOPS, nbytes)
+        ms = min(k1, k2)
+        print(f"row_gather time at R={GATHER_ROWS} from [{n} x {d}] f32: kernel {k1:.4f} / {k2:.4f} ms "
+              f"({nbytes / ms / 1e9:.2f} TB/s of the bound's bytes), plain {p1:.4f} / {p2:.4f} ms, "
+              f"torch.index_select {lib:.4f} ms, torch indexing {fancy:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
+        out[(n, d)] = {"max_abs_err": float((got - want).abs().max()), "ms": ms,
+                       "plain_ms": min(p1, p2), "library_ms": lib, "library": "torch.index_select",
+                       "fancy_index_ms": fancy, **bound}
+    study, main_path = (out[k] for k in GATHER_TIMED)
+    n, d = GATHER_TIMED[1]
+    return {**main_path, "shape": f"R={GATHER_ROWS}, table [{n} x {d}] f32",
+            "study_ms": study["ms"], "study_plain_ms": study["plain_ms"],
+            "study_library_ms": study["library_ms"], "study_bound_ms": study["bound_ms"]}
+
+
 def _timed_s(fn, reps: int = 3):
     """``(result, median seconds)`` of ``fn`` over ``reps`` runs after a warm-up."""
     out = fn()
@@ -395,7 +491,7 @@ def _timed_s(fn, reps: int = 3):
 
 
 def _zero_launches() -> None:
-    for counts in (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES):
+    for counts in (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES, cuda_gather.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -458,6 +554,155 @@ def flat_scan_phase(vecs: torch.Tensor) -> dict:
     return launches
 
 
+def traversal_phase(hnsw: Hnsw, queries: torch.Tensor, gt_ids: torch.Tensor,
+                    ids: torch.Tensor, dists: torch.Tensor) -> float:
+    """The traversals that share the hop with ``search``, on the main index:
+    instrumented, adaptive, f32 slabs, cast-only and projected routing, with
+    the plain search timed again before and after them (a shared host's load
+    moves every QPS here; compare within this phase).  Returns the plain
+    search's QPS, the better of the two."""
+    plain_recall = _recall_at_10(ids, gt_ids)
+    plain_qps = QUERIES / _timed_s(lambda: hnsw.search(queries))[1]
+    print(f"plain search, before the other traversals: {plain_qps:.1f} QPS")
+
+    def timed(label, search=hnsw.search):
+        (r_ids, r_d), secs = _timed_s(lambda: search(queries))
+        recall = _recall_at_10(r_ids, gt_ids)
+        print(f"{label}: recall@10 {recall:.5f}, {QUERIES / secs:.1f} QPS ({secs:.4f} s; "
+              f"plain search {plain_qps:.1f} QPS, recall@10 {plain_recall:.5f})")
+        return r_ids, r_d, recall
+
+    # instrumented: all queries as one block, so held against a one-block search
+    one_ids, one_d = hnsw.search(queries, query_block=QUERIES)
+    i_ids, i_d, stats = hnsw.search_instrumented(queries)
+    torch.cuda.synchronize()
+    assert torch.equal(i_ids, one_ids) and torch.equal(i_d, one_d), (
+        "search_instrumented answers differently from search")
+    improve = stats["last_improvement_hop"].float()
+    print(f"search_instrumented: ids and distances equal to search's (one block of {QUERIES}); "
+          f"equal to the default blocks' too: {bool(torch.equal(i_ids, ids) and torch.equal(i_d, dists))}; "
+          f"hops {stats['hops']}, distance evaluations {stats['distance_evaluations']}, "
+          f"last-improvement hop mean {float(improve.mean()):.2f} max {int(improve.max())}")
+    assert stats["hops"] > 0 and stats["distance_evaluations"] > 0
+
+    # adaptive: the same traversal on a shrinking batch.  cuBLAS sums a
+    # batched product in an order that depends on the batch size, so a
+    # distance can move by an ulp and a near-tie can flip; the answers are
+    # held to the lockstep search's within ADAPTIVE_TOP10_FLOOR
+    a_ids, _, a_recall = timed("search(adaptive=True)", lambda q: graph_search(
+        hnsw.layers, hnsw.compute_source, hnsw.metric, q,
+        hnsw.build_parameters.optimization.search, adaptive=True))
+    same_top10 = float((a_ids[:, :10] == ids[:, :10]).all(-1).float().mean())
+    print(f"search(adaptive=True): top-10 ids identical to the lockstep search's for "
+          f"{same_top10:.5f} of the queries, all {ids.shape[1]} ids for "
+          f"{float((a_ids == ids).all(-1).float().mean()):.5f}")
+    assert same_top10 >= ADAPTIVE_TOP10_FLOOR, (
+        f"adaptive search differs from the lockstep search on {1 - same_top10:.4f} of the queries")
+    assert abs(a_recall - plain_recall) <= 0.002, "adaptive search moved recall@10"
+
+    hnsw.enable_hop_slabs()
+    slab_bytes = sum(t.numel() * t.element_size() for t in hnsw._hop_slabs.slabs)
+    print(f"f32 hop slabs: {slab_bytes} bytes in {len(hnsw._hop_slabs.slabs)} layers "
+          f"(bottom {tuple(hnsw._hop_slabs.slabs[-1].shape)})")
+    s_ids, s_d, _ = timed("slab search (f32)")
+    assert torch.equal(s_ids, ids) and torch.equal(s_d, dists), (
+        "f32 slab search is not identical to the plain hop")
+    hnsw.disable_hop_slabs()
+
+    hnsw.enable_routing(dr=None)
+    for slabs in (False, True):
+        if slabs:
+            hnsw.enable_hop_slabs()
+            assert hnsw._hop_slabs.routed and hnsw._hop_slabs.slabs[-1].dtype == torch.bfloat16
+        r_ids, r_d, recall = timed(f"routed search (bf16 cast{', bf16 slabs' if slabs else ''})")
+        assert recall >= plain_recall - ROUTED_RECALL_SLACK, (
+            f"cast-only routed recall@10 {recall} more than {ROUTED_RECALL_SLACK} under {plain_recall}")
+        assert bool(torch.isfinite(r_d[:, :10]).all()), "non-finite reranked distances"
+        assert bool((r_d[:, 1:] >= r_d[:, :-1]).all()), "reranked distances not ascending"
+    hnsw.disable_hop_slabs()
+    f_ids, f_d = hnsw.search(queries, routed=False)
+    assert torch.equal(f_ids, ids) and torch.equal(f_d, dists), "routed=False is not the plain search"
+
+    hnsw.enable_routing(dr=64)
+    assert hnsw._routing.rows.shape == (hnsw.source.count, 64)
+    timed("routed search (dr=64 projection)")
+    self_ids, _ = hnsw.search(hnsw.source.vectors[:1000])
+    found = float((self_ids[:, 0] == torch.arange(1000, device=self_ids.device)).float().mean())
+    print(f"routed search (dr=64): {found:.4f} of 1000 corpus rows find themselves first")
+    assert found >= 0.999, f"self-queries lost under dr=64 routing: {found}"
+    hnsw.disable_routing()
+    after_qps = QUERIES / _timed_s(lambda: hnsw.search(queries))[1]
+    print(f"plain search, after the other traversals: {after_qps:.1f} QPS")
+    return max(plain_qps, after_qps)
+
+
+def profile_search(hnsw: Hnsw, queries: torch.Tensor, plain_qps: float) -> None:
+    """One ``search`` pass under ``torch.profiler``: the device time by
+    kernel and its share of the pass's wall time WITHOUT the profiler (which
+    slows the host loop, not the kernels).  A record, not a check: nothing
+    is asserted on it."""
+    torch.cuda.synchronize()
+    # device activity only: host-side operator events would triple the trace
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        hnsw.search(queries)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - ts) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        print("search profile: the profiler recorded no device time (not measured)")
+        return
+    busy_ms = sum(ms for _, ms, _ in rows)
+    wall_ms = queries.shape[0] / plain_qps * 1e3
+    print(f"search profile, one pass of {queries.shape[0]} queries under torch.profiler: device "
+          f"busy {busy_ms:.1f} ms in {sum(n for _, _, n in rows)} kernels, {busy_ms / wall_ms:.1%} "
+          f"of the {wall_ms:.1f} ms the pass takes unprofiled ({profiled_ms:.1f} ms profiled); "
+          f"by kernel:")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {ms:9.2f} ms {count:7d} x  {key[:100]}")
+
+
+def small_index_phase(vecs: torch.Tensor) -> None:
+    """On a 10,000 x 100 index: a mutation drops the slabs, ``knn(10)``, and a
+    build that resumes from its own finished checkpoint."""
+    source = DenseSource(vecs[:SMALL_COUNT].contiguous())
+    tmp = tempfile.mkdtemp(prefix="hnsw_smoke_ckpt_")
+    try:
+        tb = time.perf_counter()
+        small = Hnsw.generate(source, metric=Metric.NORMALIZED_COSINE, seed=0, checkpoint_dir=tmp)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - tb
+        assert os.path.exists(os.path.join(tmp, "meta"))
+        tb = time.perf_counter()
+        again = Hnsw.generate(source, metric=Metric.NORMALIZED_COSINE, seed=0, checkpoint_dir=tmp)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - tb
+    finally:
+        shutil.rmtree(tmp)
+    assert [l.node_count for l in again.layers] == [l.node_count for l in small.layers]
+    for a, b in zip(small.layers, again.layers):
+        assert torch.equal(a.nodes, b.nodes), "the resumed build has other layers"
+    print(f"checkpoint resume at {SMALL_COUNT} x {DIM}: built in {first_s:.3f} s, resumed from "
+          f"the finished checkpoint in {resume_s:.3f} s, layers {[l.node_count for l in again.layers]}")
+
+    small.enable_hop_slabs()
+    assert small._hop_slabs is not None
+    small.improve_neighbors()
+    assert small._hop_slabs is None, "a mutation left the hop slabs in place"
+
+    tk = time.perf_counter()
+    vec_ids, nn_ids, nn_d = small.knn(10)
+    knn_s = time.perf_counter() - tk
+    assert nn_ids.shape == (SMALL_COUNT, 10) and nn_d.shape == (SMALL_COUNT, 10)
+    assert not (nn_ids == vec_ids[:, None]).any(), "knn returned a row's own vector"
+    assert np.isfinite(nn_d).all() and (np.diff(nn_d, axis=1) >= 0).all(), "knn distances not ascending"
+    gt = small.search_exact(source.vectors, k=11)[0][:, 1:].cpu().numpy()
+    hits = (nn_ids[:, :, None] == gt[:, None, :]).any(-1).mean()
+    print(f"knn(10) over {SMALL_COUNT} rows: {knn_s:.3f} s, recall@10 against the exact scan {hits:.5f}; "
+          f"improve_neighbors dropped the slabs")
+
+
 def persistence_phase(hnsw: Hnsw, queries: torch.Tensor, device) -> None:
     """Serialize, read back onto the card, and search with both."""
     tmp = tempfile.mkdtemp(prefix="hnsw_smoke_")
@@ -517,7 +762,11 @@ def main() -> None:
     scans = check_scan_kernels(device, flat_vecs)
     t = _phase("3 scan kernel check", t)
 
-    # 4. build
+    # 4. row-gather kernel against its plain version
+    gather = check_gather_kernel(device)
+    t = _phase("4 gather kernel check", t)
+
+    # 5. build
     vecs = random_unit_corpus(args.count + QUERIES, DIM, seed=42, device=device).vectors
     source = DenseSource(vectors=vecs[: args.count])
     queries = vecs[args.count :]
@@ -530,16 +779,16 @@ def main() -> None:
     print(f"build: {build_s:.3f} s, {args.count / build_s:.1f} vec/s")
     print(f"layers: {[l.node_count for l in hnsw.layers]}")
     print(TRACER.format_summary())
-    print(f"launches after build: {cuda_distance.LAUNCHES}")
+    print(f"launches after build: {cuda_distance.LAUNCHES} {cuda_gather.LAUNCHES}")
     assert cuda_distance.LAUNCHES["exact"] > 0 and cuda_distance.LAUNCHES["fast"] > 0, (
         "the build did not run the kernel in both modes"
     )
     stochastic = hnsw.stochastic_recall()
     print(f"stochastic recall: {stochastic}")
     hnsw.assert_invariants()
-    t = _phase("4 build", t)
+    t = _phase("5 build", t)
 
-    # 5. search
+    # 6. search
     gt_ids, gt_d = hnsw.search_exact(queries, k=10)
     assert gt_ids.shape == (QUERIES, 10) and bool(torch.isfinite(gt_d).all())
     ids, dists = hnsw.search(queries)  # warm-up
@@ -553,7 +802,8 @@ def main() -> None:
     qps = QUERIES / float(np.median(times))
     recall = _recall_at_10(ids, gt_ids)
     print(f"search: held-out recall@10 {recall:.5f}, {qps:.1f} QPS "
-          f"(median of {[round(x, 4) for x in times]} s)")
+          f"(median of {[round(x, 4) for x in times]} s; {SEARCH_QPS_BEFORE_GATHER_KERNEL} QPS "
+          f"with torch indexing in place of the row-gather kernel, H100 at 700 W)")
     assert bool(torch.isfinite(dists[:, :10]).all()), "non-finite search distances"
     assert recall >= HELD_OUT_RECALL_FLOOR, f"held-out recall@10 {recall} below {HELD_OUT_RECALL_FLOOR}"
     rows = source.vectors[:QUERIES]
@@ -563,17 +813,31 @@ def main() -> None:
     print(f"stochastic_recall(): {stochastic}")
     assert stochastic >= STOCHASTIC_RECALL_FLOOR, f"stochastic recall {stochastic} below {STOCHASTIC_RECALL_FLOOR}"
     launches = sum(cuda_distance.LAUNCHES.values())
-    print(f"launches in the main path: {cuda_distance.LAUNCHES}")
-    t = _phase("5 search", t)
+    print(f"launches in the main path: {cuda_distance.LAUNCHES} {cuda_gather.LAUNCHES}")
+    gather_launches_build_and_search = cuda_gather.LAUNCHES["row_gather"]
+    # the row-gather kernel's count: ONE search pass, zeroed just before it
+    _zero_launches()
+    one_ids, _ = hnsw.search(queries)
+    torch.cuda.synchronize()
+    gather_launches = cuda_gather.LAUNCHES["row_gather"]
+    print(f"row_gather launches in one search pass of {QUERIES} queries: {gather_launches}")
+    assert torch.equal(one_ids, ids) and gather_launches > 0, "the search did not run the gather kernel"
+    t = _phase("6 search", t)
 
-    # 6. persistence
+    # 7. the other traversals
+    phase_qps = traversal_phase(hnsw, queries, gt_ids, ids, dists)
+    profile_search(hnsw, queries, phase_qps)
+    small_index_phase(vecs)
+    t = _phase("7 routed, slab, instrumented and adaptive search", t)
+
+    # 8. persistence
     persistence_phase(hnsw, queries[:PERSIST_QUERIES], device)
     del hnsw
-    t = _phase("6 persistence", t)
+    t = _phase("8 persistence", t)
 
-    # 7. flat scan
+    # 9. flat scan
     flat_launches = flat_scan_phase(flat_vecs)
-    _phase("7 flat scan", t)
+    _phase("9 flat scan", t)
     _phase("total", t0)
 
     print(json.dumps({"kernels": [
@@ -601,6 +865,15 @@ def main() -> None:
             "replaces": "parallel_hnsw_tpu/ops/pallas_scan.py:161",
             "launches": flat_launches["folded"],
             **scans["folded_scan"],
+        },
+        {
+            "name": "row_gather",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/row_gather.cu",
+            "replaces": "scripts/gather_kernel_study.py:34",
+            "launches": gather_launches,
+            "launches_build_and_search": gather_launches_build_and_search,
+            **gather,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
 """parallel_hnsw_tpu_torch — the PyTorch/CUDA port of parallel_hnsw_tpu.
 
 The dense build-and-search path of the JAX package, on tensors: bulk ladder
-build, the improve/promote self-repair loop, batched beam search and exact
-brute-force top-k; the flat-scan path (``fast_flat_knn``,
+build (with checkpoint resume), the improve/promote self-repair loop, batched
+beam search (plain, instrumented, adaptive, routed over bf16 routing rows,
+over hop slabs), all-pairs ``knn`` / ``threshold_nn`` and exact brute-force
+top-k; the flat-scan path (``fast_flat_knn``,
 ``Hnsw.search_exact(fast=True)``); and dense index persistence (``io``, the
 JAX package's directory format).  The kernels are hand-written CUDA for
 Hopper, built with ``nvcc`` at first use: pairwise distances
-(``csrc/pairwise_distance.cu``) and the binned and folded distance scans
-(``csrc/binned_scan.cu``).  A CUDA tensor always goes through a kernel; a CPU
+(``csrc/pairwise_distance.cu``), the binned and folded distance scans
+(``csrc/binned_scan.cu``) and the row gather under every hop
+(``csrc/row_gather.cu``).  A CUDA tensor always goes through a kernel; a CPU
 tensor takes the plain PyTorch version.  Entry points that create tensors
 place them on the card unless the caller names a device.  Imports torch and
 numpy, never jax.

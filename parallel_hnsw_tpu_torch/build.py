@@ -12,7 +12,7 @@ distance, and (5) symmetrizing with reverse edges.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -269,6 +269,7 @@ def generate(
     metric: Metric,
     seed: int = 0,
     improver=None,
+    initial_layers: Optional[List[Layer]] = None,
 ) -> List[Layer]:
     """Build the full layer stack top-down (reference: Hnsw::generate,
     src/lib.rs:825-893).
@@ -276,6 +277,13 @@ def generate(
     ``improver(layers) -> layers`` is invoked after every layer (the reference
     calls ``improve_index`` there, src/lib.rs:876); the index-level wrapper
     wires in the optimization loop to avoid a module cycle.
+
+    ``initial_layers``: resume a partially-built ladder (e.g. from a mid-build
+    checkpoint): the given stack is kept as-is and construction continues with
+    the remaining (strictly larger) ladder rungs.  The candidate-pool draws
+    of a rung derive from its size, so a resumed build draws what an
+    uninterrupted one would.  No reference analogue: the reference's generate
+    is a single uninterruptible call.
     """
     rng = np.random.default_rng(seed)
     if isinstance(vector_ids, torch.Tensor):
@@ -289,6 +297,19 @@ def generate(
     partitions = calculate_partitions(total, bp.order)
     layers: List[Layer] = []
     i = 0
+    if initial_layers:
+        layers = list(initial_layers)
+        built = [l.node_count for l in layers]
+        if built[-1] > total:
+            raise ValueError(
+                f"checkpoint bottom layer ({built[-1]} nodes) exceeds the "
+                f"corpus ({total}) — wrong checkpoint for this build"
+            )
+        # splice the checkpointed stack in as the ladder prefix (promotions
+        # may have inserted rungs the ladder math didn't predict — same
+        # refresh rule as below)
+        partitions = built + [p for p in partitions if p > built[-1]]
+        i = len(built)
     while i != len(partitions):
         layer_count = len(partitions)
         length = partitions[i]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID, ID_DTYPE
+from parallel_hnsw_tpu_torch.ops.cuda_gather import row_gather
 
 
 class Layer(NamedTuple):
@@ -59,11 +60,11 @@ Source = DenseSource
 def source_get(source: Source, ids: torch.Tensor) -> torch.Tensor:
     """Gather feature vectors for ``ids`` (any shape) -> ``[*ids.shape, D]``.
 
-    Ids are clipped into range (a CUDA gather out of range is a device-side
-    assert); EMPTY_ID gathers a real row, so callers mask distances of
-    invalid slots to +inf."""
-    safe = torch.clamp(ids, 0, source.vectors.shape[0] - 1)
-    return source.vectors[safe]
+    Ids are clipped into range (the row-gather kernel does not check them);
+    EMPTY_ID gathers a real row, so callers mask distances of invalid slots
+    to +inf."""
+    safe = torch.clamp(ids, 0, source.vectors.shape[0] - 1).to(ID_DTYPE)
+    return row_gather(source.vectors, safe)
 
 
 def source_effective_width(source: Source) -> int:

@@ -21,6 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (
     _PKG / "csrc" / "pairwise_distance.cu",
     _PKG / "csrc" / "binned_scan.cu",
+    _PKG / "csrc" / "row_gather.cu",
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -111,5 +112,10 @@ def load() -> ctypes.CDLL:
             # x, y, outt, outi; q, c, d, tile_c, n_slots, n_jj, metric; stream
             fn.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
             fn.restype = ctypes.c_int
+        fn = lib.row_gather
+        # table, idx, out; rows, table_rows, row_bytes (64-bit: rows x row_bytes
+        # passes 2^31 when a hop slab is built); stream
+        fn.argtypes = [ptr] * 3 + [ctypes.c_longlong] * 3 + [ptr]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -74,8 +74,15 @@ def pairwise_distance(
 
 
 def batched_distance(q: torch.Tensor, cands: torch.Tensor, metric: Metric) -> torch.Tensor:
-    """``[..., D] x [..., C, D] -> [..., C]`` distances (per-query candidates)."""
+    """``[..., D] x [..., C, D] -> [..., C]`` distances (per-query candidates).
+
+    Candidates narrower than the queries (bf16 routing rows against f32
+    queries) are widened first: every product and sum is f32, and so is the
+    result."""
     metric = Metric(metric)
+    if cands.dtype != q.dtype:
+        wide = torch.promote_types(q.dtype, cands.dtype)
+        q, cands = q.to(wide), cands.to(wide)
     if _is_dot_based(metric):
         check_fp32_matmul(q)
         dots = torch.matmul(cands, q.unsqueeze(-1)).squeeze(-1)

@@ -65,7 +65,10 @@ def _merge_slabs(a_i, a_d, b_i, b_d, m: int) -> Tuple[torch.Tensor, torch.Tensor
     d1 = torch.where(dup, EMPTY_DIST, d1)
     # rank by (dist, src)
     perm = lexsort_perm(d1, i1)
-    return torch.gather(i1, -1, perm)[..., :m], torch.gather(d1, -1, perm)[..., :m]
+    # contiguous: the slab becomes a layer's neighbor table, which the
+    # row-gather kernel copies row by row
+    return (torch.gather(i1, -1, perm)[..., :m].contiguous(),
+            torch.gather(d1, -1, perm)[..., :m].contiguous())
 
 
 def _rebuild_rows_flat(

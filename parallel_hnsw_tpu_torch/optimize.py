@@ -82,7 +82,7 @@ def _relink_layer_jit(
     layer = layers[-1]
     nodes, neighbors = layer.nodes, layer.neighbors
     queries = source_get(source, nodes)
-    res_ids, res_d = search_stack(layers, source, metric, queries, sp, exclude=nodes)
+    res_ids, res_d = search_stack(layers, source, metric, queries, sp, exclude=nodes)[:2]
     match_nodes = vec_to_node(nodes, res_ids[:, :match_count])
     match_d = torch.where(match_nodes == EMPTY_ID, EMPTY_DIST, res_d[:, :match_count])
     row_d = _row_dists(nodes, neighbors, nodes, source, metric)

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from parallel_hnsw_tpu_torch import BuildParams, DenseSource, Hnsw, Metric, analysis
-from parallel_hnsw_tpu_torch.ops import cuda_distance, cuda_scan
+from parallel_hnsw_tpu_torch.ops import cuda_distance, cuda_gather, cuda_scan
 from parallel_hnsw_tpu_torch.ops.distance import pairwise_distance
+from parallel_hnsw_tpu_torch.search import search as graph_search
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +208,171 @@ def test_persistence_lands_on_the_card(device, tmp_path):
     assert loaded.source.device.type == "cuda"
     (i1, d1), (i2, d2) = hnsw.search(source.vectors[:50]), loaded.search(source.vectors[:50])
     assert torch.equal(i1, i2) and torch.equal(d1, d2)
+
+
+# -- the row-gather kernel ------------------------------------------------------
+
+# (dtype, trailing shape): f32 feature rows (16-, 8- and 4-byte vectors), bf16
+# routing rows (200-byte rows are only 8-byte aligned, 2-byte rows), int32
+# neighbor rows, slab rows
+GATHER_TABLES = [
+    (torch.float32, (100,)), (torch.float32, (128,)), (torch.float32, (96,)),
+    (torch.float32, (1,)), (torch.float32, (7,)), (torch.bfloat16, (64,)),
+    (torch.bfloat16, (100,)), (torch.bfloat16, (128,)), (torch.bfloat16, (1,)),
+    (torch.bfloat16, (33,)), (torch.int32, (24,)), (torch.int32, (48,)),
+    (torch.float32, (48, 100)), (torch.bfloat16, (48, 100)), (torch.uint8, (3,)),
+]
+
+
+def _table(n, dtype, tail, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.randint(0, 1 << 15, (n, *tail), generator=gen)
+    return (t.to(dtype) if dtype in (torch.int32, torch.uint8) else (t.float() - 16384).to(dtype)).to(device)
+
+
+@pytest.mark.parametrize("dtype,tail", GATHER_TABLES, ids=lambda v: str(v).replace("torch.", ""))
+def test_row_gather_is_bit_identical(device, dtype, tail):
+    n = 5000 if len(tail) == 1 else 300
+    table = _table(n, dtype, tail, device)
+    gen = torch.Generator().manual_seed(1)
+    for r in (1, 3, 2047, 2048, 100_000):
+        idx = torch.randint(0, n, (r,), generator=gen, dtype=torch.int32)
+        idx[: min(r, 4)] = torch.tensor([0, n - 1, 7, 7])[: min(r, 4)]  # ends, a repeat
+        idx = idx.to(device)
+        before = cuda_gather.LAUNCHES["row_gather"]
+        got = cuda_gather.row_gather(table, idx)
+        torch.cuda.synchronize()
+        assert cuda_gather.LAUNCHES["row_gather"] == before + 1
+        assert got.dtype == dtype and got.shape == (r, *tail)
+        assert torch.equal(got, cuda_gather.plain_row_gather(table, idx))
+
+
+def test_row_gather_takes_views_and_unaligned_bases(device):
+    base = _table(4001, torch.bfloat16, (100,), device)
+    idx2d = torch.randint(0, 4000, (64, 192), dtype=torch.int32).to(device)
+    # a table whose base pointer is only 2-byte aligned (rows of 99 bf16)
+    odd = base.reshape(-1)[1 : 1 + 4000 * 99].view(4000, 99)
+    assert odd.is_contiguous() and odd.data_ptr() % 4 == 2
+    for table in (base[1:], odd):
+        for idx in (idx2d, idx2d.T, idx2d[:, ::3], idx2d[5]):
+            got = cuda_gather.cuda_row_gather(table, idx)
+            assert got.shape == (*idx.shape, table.shape[1])
+            assert torch.equal(got, table[idx.long()])
+    # an output whose rows are wider than 2^31 bytes in all
+    wide = _table(50, torch.float32, (48, 100), device)
+    idx = torch.randint(0, 50, (120_000,), dtype=torch.int32).to(device)
+    got = cuda_gather.cuda_row_gather(wide, idx)
+    assert got.numel() * 4 > 2**31
+    for s in (0, 60_000, 119_000):
+        assert torch.equal(got[s : s + 1000], wide[idx[s : s + 1000].long()])
+
+
+def test_row_gather_rejects_bad_operands(device):
+    table = _table(10, torch.float32, (8,), device)
+    idx = torch.zeros(4, dtype=torch.int32, device=device)
+    with pytest.raises(TypeError):
+        cuda_gather.cuda_row_gather(table, idx.long())
+    with pytest.raises(ValueError):
+        cuda_gather.cuda_row_gather(table, idx.cpu())
+    with pytest.raises(ValueError):
+        cuda_gather.cuda_row_gather(table.T, idx)
+    with pytest.raises(ValueError):
+        cuda_gather.cuda_row_gather(table[:, 0], idx)
+    with pytest.raises(ValueError):
+        cuda_gather.cuda_row_gather(table.cpu(), idx.cpu())
+    with pytest.raises(ValueError):
+        cuda_gather.cuda_row_gather(table[:0], idx)
+    before = cuda_gather.LAUNCHES["row_gather"]
+    assert cuda_gather.cuda_row_gather(table, idx[:0]).shape == (0, 8)
+    assert cuda_gather.LAUNCHES["row_gather"] == before
+
+
+@pytest.fixture(scope="module")
+def small_index():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-1, 1, (3100, 32)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    vecs = torch.from_numpy(x).to("cuda:0")
+    hnsw = Hnsw.generate(DenseSource(vecs[:3000]), metric=Metric.NORMALIZED_COSINE, seed=1)
+    return hnsw, vecs[3000:]
+
+
+def test_search_family_on_device(device, small_index):
+    hnsw, queries = small_index
+    before = cuda_gather.LAUNCHES["row_gather"]
+    ids, dists = hnsw.search(queries)
+    assert cuda_gather.LAUNCHES["row_gather"] > before
+    i_ids, i_d, stats = hnsw.search_instrumented(queries)
+    assert torch.equal(ids, i_ids) and torch.equal(dists, i_d)
+    assert stats["hops"] > 0 and stats["distance_evaluations"] > 0
+    assert stats["last_improvement_hop"].shape == (queries.shape[0],)
+    # adaptive batches shrink, and a batched product sums in an order that
+    # depends on the batch size: distances move by an ulp, near-ties may flip
+    a_ids, a_d = graph_search(hnsw.layers, hnsw.compute_source, hnsw.metric, queries,
+                              hnsw.build_parameters.optimization.search, adaptive=True)
+    assert float((a_ids[:, :10] == ids[:, :10]).all(-1).float().mean()) >= 0.99
+    torch.testing.assert_close(a_d[:, :10], dists[:, :10], atol=1e-6, rtol=0)
+    top, _ = hnsw.search_upto(queries, None, 1)
+    assert top.shape == ids.shape
+    with pytest.raises(ValueError):
+        hnsw.search_upto(queries, None, 0)
+
+
+def test_slabs_and_routing_on_device(device, small_index):
+    hnsw, queries = small_index
+    gt, _ = hnsw.search_exact(queries, k=10)
+    ids, dists = hnsw.search(queries)
+
+    def recall(found):
+        return float((found[:, :10, None] == gt[:, None, :]).any(-1).float().mean())
+
+    hnsw.enable_hop_slabs()
+    assert not hnsw._hop_slabs.routed and hnsw._hop_slabs.slabs[-1].shape == (3000, 48, 32)
+    s_ids, s_d = hnsw.search(queries)
+    assert torch.equal(ids, s_ids) and torch.equal(dists, s_d)
+    hnsw.disable_hop_slabs()
+    hnsw.enable_routing(dr=None)
+    assert hnsw._routing.rows.dtype == torch.bfloat16 and hnsw._routing.rows.is_cuda
+    r_ids, r_d = hnsw.search(queries)
+    assert recall(r_ids) >= recall(ids) - 0.02
+    assert bool(torch.isfinite(r_d[:, :10]).all()) and bool((r_d[:, 1:] >= r_d[:, :-1]).all())
+    hnsw.enable_hop_slabs()
+    assert hnsw._hop_slabs.routed and hnsw._hop_slabs.slabs[-1].dtype == torch.bfloat16
+    rs_ids, rs_d = hnsw.search(queries)
+    assert torch.equal(r_ids, rs_ids) and torch.equal(r_d, rs_d)
+    f_ids, _ = hnsw.search(queries, routed=False)
+    assert torch.equal(f_ids, ids)
+    hnsw.disable_hop_slabs()
+    hnsw.enable_routing(dr=16, seed=3)
+    assert hnsw._routing.rows.shape == (3000, 16)
+    self_ids, _ = hnsw.search(hnsw.source.vectors[:64])
+    assert bool((self_ids[:, 0] == torch.arange(64, device=device)).all())
+    hnsw.disable_routing()
+    hnsw.enable_hop_slabs()
+    hnsw.improve_neighbors()
+    assert hnsw._hop_slabs is None
+
+
+def test_selfsim_and_resume_on_device(device, small_index, tmp_path):
+    hnsw, _ = small_index
+    vec_ids, nn_ids, nn_d = hnsw.knn(5)
+    assert nn_ids.shape == (3000, 5) and not (nn_ids == vec_ids[:, None]).any()
+    assert (np.diff(nn_d, axis=1) >= 0).all()
+    full = pairwise_distance(hnsw.source.vectors, hnsw.source.vectors, Metric.NORMALIZED_COSINE)
+    full.fill_diagonal_(float("inf"))
+    want = torch.sort(full, dim=-1).values[:, 0].cpu().numpy()
+    assert np.mean(np.abs(nn_d[:, 0] - want) <= 1e-6) >= 0.98
+    _, t_ids, t_d = hnsw.threshold_nn(0.2)
+    inside = t_ids != np.iinfo(np.int32).max
+    assert (t_d[inside] < 0.2).all() and np.isinf(t_d[~inside]).all()
+    bp = BuildParams()
+    source = DenseSource(hnsw.source.vectors[:1200])
+    first = Hnsw.generate(source, bp=bp, metric=Metric.NORMALIZED_COSINE, seed=4,
+                          checkpoint_dir=str(tmp_path / "ckpt"))
+    again = Hnsw.generate(source, bp=bp, metric=Metric.NORMALIZED_COSINE, seed=4,
+                          checkpoint_dir=str(tmp_path / "ckpt"))
+    assert again.layers[0].nodes.is_cuda
+    for a, b in zip(first.layers, again.layers):
+        assert torch.equal(a.nodes, b.nodes)

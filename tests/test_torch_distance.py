@@ -64,6 +64,25 @@ def test_batched_and_paired_match_jax(metric):
     )
 
 
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+def test_batched_distance_widens_bf16_candidates_like_jax(metric):
+    """bf16 routing rows against f32 queries: both packages widen the rows and
+    accumulate in f32, so unit vectors agree within atol 1e-6 (one f32 ulp of
+    sums of magnitude <= 4 under another summation order)."""
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(6, 16)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    c = rng.normal(size=(6, 9, 16)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    got = td.batched_distance(torch.from_numpy(q), torch.from_numpy(c).to(torch.bfloat16), metric)
+    want = jd.batched_distance(jnp.asarray(q), jnp.asarray(c).astype(jnp.bfloat16), metric.value)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    # and the result is that of the widened rows, not of rounded queries
+    wide = td.batched_distance(torch.from_numpy(q), torch.from_numpy(c).to(torch.bfloat16).float(), metric)
+    assert torch.equal(got, wide)
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     x = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="CUDA"):

@@ -29,6 +29,7 @@ from parallel_hnsw_tpu_torch.graph import DenseSource, Layer
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.ops.distance import Metric
 from parallel_hnsw_tpu_torch.params import BuildParams, OptimizationParams, SearchParams
+from parallel_hnsw_tpu_torch.search import search as graph_search
 from parallel_hnsw_tpu_torch.utils.trace import TRACER, Tracer, torch_profile
 
 # one intra-op thread: the test process also runs XLA's CPU thread pool, and
@@ -231,6 +232,53 @@ def broken():
     return hnsw
 
 
+def test_search_upto_range_check_and_top_layers(built):
+    """``search_upto`` searches the top layers only; 0 layers has no entry
+    point and raises in both packages (mirror of the JAX package's check)."""
+    jh, _, corpus, queries, _, _ = built
+    layers = [(np.asarray(l.nodes), np.asarray(l.neighbors)) for l in jh.layers]
+    th = hnsw_from_numpy(layers, corpus, jh.metric.value, params_to_dict(jh.build_parameters), "cpu")
+    q = torch.from_numpy(queries)
+    for bad in (0, th.layer_count + 1, -1):
+        with pytest.raises(ValueError, match="upto_layer_from_top"):
+            th.search_upto(q, None, bad)
+        with pytest.raises(ValueError, match="upto_layer_from_top"):
+            jh.search_upto(jnp.asarray(queries), None, bad)
+    full = th.search(q)
+    for got in (th.search_upto(q), th.search_upto(q, None, th.layer_count)):
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    # the top layer alone: only its nodes can come back, as in JAX
+    sp = SearchParams(number_of_candidates=8, upper_layer_candidate_count=8)
+    t_ids, t_d = th.search_upto(q, sp, 1)
+    j_ids, j_d = jh.search_upto(jnp.asarray(queries), JaxSearchParams(**vars(sp)), 1)
+    top_nodes = set(th.layers[0].nodes.tolist()) | {EMPTY_ID}
+    assert set(t_ids.flatten().tolist()) <= top_nodes
+    assert (t_ids.numpy()[:, 0] == np.asarray(j_ids)[:, 0]).mean() >= 0.99
+    np.testing.assert_allclose(t_d.numpy()[:, 0], np.asarray(j_d)[:, 0], atol=1e-5)
+
+
+def test_index_search_options(built):
+    """``Hnsw.search_instrumented`` and ``search.search(adaptive=True)`` answer
+    like ``Hnsw.search`` (top-10: on unit vectors an ulp may reorder the
+    queue's tail when the adaptive batch shrinks); with no cache, ``routed``
+    changes nothing."""
+    _, th, _, queries, _, _ = built
+    q = torch.from_numpy(queries)
+    ids, dists = th.search(q)
+    i_ids, i_d, stats = th.search_instrumented(q)
+    assert torch.equal(i_ids, ids) and torch.equal(i_d, dists)
+    assert set(stats) == {"hops", "distance_evaluations", "last_improvement_hop"}
+    assert stats["hops"] >= th.layer_count and stats["last_improvement_hop"].shape == (N_QUERIES,)
+    a_ids, a_d = graph_search(th.layers, th.compute_source, th.metric, q,
+                              th.build_parameters.optimization.search, adaptive=True)
+    assert (a_ids[:, :10] == ids[:, :10]).all(-1).float().mean() >= 0.99
+    torch.testing.assert_close(a_d[:, :10], dists[:, :10], atol=1e-5, rtol=0)
+    for routed in (True, False):
+        r_ids, _ = th.search(q, routed=routed)
+        assert torch.equal(r_ids, ids)
+    assert th.compute_source is th.source
+
+
 def test_tiny_generate_full_recall():
     hnsw = build_simple()
     hnsw.assert_invariants()
@@ -315,7 +363,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import parallel_hnsw_tpu_torch, parallel_hnsw_tpu_torch.convert\n"
         "import parallel_hnsw_tpu_torch.utils.data, parallel_hnsw_tpu_torch.utils.trace\n"
-        "import parallel_hnsw_tpu_torch.ops.cuda_distance\n"
+        "import parallel_hnsw_tpu_torch.ops.cuda_distance, parallel_hnsw_tpu_torch.ops.cuda_gather\n"
+        "import parallel_hnsw_tpu_torch.ops.cuda_scan, parallel_hnsw_tpu_torch.routing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'parallel_hnsw_tpu.')))\n"
         "assert not bad, bad\n"
     )

@@ -41,12 +41,16 @@ def built():
     return th, jh
 
 
-def _assert_same_index(a: Hnsw, b: Hnsw):
+def _assert_same_layers(a: Hnsw, b: Hnsw):
     assert a.layer_count == b.layer_count and a.metric == b.metric
     assert a.build_parameters == b.build_parameters
     for la, lb in zip(a.layers, b.layers):
         assert la.nodes.dtype == lb.nodes.dtype == torch.int32
         assert torch.equal(la.nodes, lb.nodes) and torch.equal(la.neighbors, lb.neighbors)
+
+
+def _assert_same_index(a: Hnsw, b: Hnsw):
+    _assert_same_layers(a, b)
     assert torch.equal(a.source.vectors, b.source.vectors)
 
 
@@ -135,6 +139,86 @@ def test_meta_is_written_last_and_stale_meta_goes_first(built, tmp_path, monkeyp
     assert calls[0] == "vectors" and not (tmp_path / "idx" / "meta").exists()
     with pytest.raises(FileNotFoundError):
         tio.read_index_meta(tmp_path / "idx")
+
+
+@pytest.fixture(scope="module")
+def resume_case():
+    """A corpus, its parameters and an uninterrupted build of it."""
+    source = tdata.random_unit_corpus(300, 8, device="cpu")
+    bp = BuildParams(order=6, neighborhood_size=4, zero_layer_neighborhood_size=8,
+                     optimization=OptimizationParams(recall_proportion=1.0))
+    full = Hnsw.generate(source, None, bp, Metric.NORMALIZED_COSINE, seed=2)
+    assert full.layer_count >= 2
+    return source, bp, full
+
+
+def test_generate_resumes_from_partial_checkpoint(resume_case, tmp_path):
+    """A mid-build ladder checkpoint (upper rungs only) is resumed: the
+    stored stack becomes the ladder prefix and only larger rungs are built
+    (mirror of the JAX package's test).  The checkpoint here is written by
+    the JAX package: the format is shared."""
+    source, bp, full = resume_case
+    layers, vectors, metric, bp_dict = hnsw_to_numpy(full)
+    partial = JHnsw(
+        [JLayer(nodes=jnp.asarray(n), neighbors=jnp.asarray(nb)) for n, nb in layers[:-1]],
+        JDenseSource(vectors=jnp.asarray(vectors)), metric, j_build_params_from_dict(bp_dict),
+    )
+    ckpt = tmp_path / "ckpt"
+    # simulate a crash after the first rungs: checkpoint only the upper stack
+    # (with the build-identity meta a real mid-build checkpoint carries)
+    jio.serialize_hnsw(partial, ckpt, store_source=False,
+                       extra_meta={"build_seed": 2, "corpus_count": 300})
+    resumed = Hnsw.generate(source, None, bp, Metric.NORMALIZED_COSINE, seed=2,
+                            checkpoint_dir=str(ckpt))
+    # the checkpointed prefix is preserved as ladder rungs and the bottom
+    # rung covers the whole corpus
+    assert resumed.layer_count >= full.layer_count
+    assert resumed.layers[-1].node_count == 300
+    counts = [l.node_count for l in resumed.layers]
+    assert counts[: partial.layer_count] == [l.node_count for l in full.layers[:-1]]
+    for a, b in zip(resumed.layers, full.layers[:-1]):
+        assert torch.equal(a.nodes, b.nodes)
+    # the resumed bottom rung draws what the uninterrupted build drew
+    assert torch.equal(resumed.layers[-1].nodes, full.layers[-1].nodes)
+    # and the resumed index searches fine
+    ids, _ = resumed.search(source.vectors[:16])
+    assert (ids[:, 0].numpy() == np.arange(16)).mean() >= 0.9
+    # the finished build left a whole checkpoint behind, without the vectors
+    meta = tio.read_index_meta(ckpt)
+    assert meta["layer_count"] == resumed.layer_count and meta["build_seed"] == 2
+    assert not (ckpt / "comparator").exists()
+    _assert_same_layers(tio.deserialize_hnsw(ckpt, source=source), resumed)
+
+
+@pytest.mark.parametrize("wrong", ["build_seed", "corpus_count", "metric", "build_parameters"])
+def test_resume_rejects_mismatched_checkpoint(resume_case, tmp_path, wrong):
+    """A checkpoint from a different seed/corpus/metric/parameters must NOT
+    be spliced in: generate ignores it and rebuilds (guard against silently
+    resuming the wrong build)."""
+    source, bp, full = resume_case
+    ckpt = tmp_path / "ckpt"
+    meta = {"build_seed": 2, "corpus_count": 300}
+    partial = Hnsw(full.layers[:-1], source, full.metric, bp)
+    if wrong in meta:
+        meta[wrong] = 99
+    elif wrong == "metric":
+        partial.metric = Metric.COSINE
+    else:
+        partial.build_parameters = BuildParams()
+    tio.serialize_hnsw(partial, ckpt, store_source=False, extra_meta=meta)
+    rebuilt = Hnsw.generate(source, None, bp, Metric.NORMALIZED_COSINE, seed=2,
+                            checkpoint_dir=str(ckpt))
+    # rebuilt from scratch: same result as an uninterrupted same-seed build
+    _assert_same_layers(rebuilt, full)
+
+
+def test_generate_rejects_a_checkpoint_larger_than_the_corpus(resume_case):
+    from parallel_hnsw_tpu_torch import build as tbuild
+
+    source, bp, full = resume_case
+    with pytest.raises(ValueError, match="exceeds the corpus"):
+        tbuild.generate(source, np.arange(100), bp, Metric.NORMALIZED_COSINE, seed=2,
+                        initial_layers=full.layers)
 
 
 def test_pq_and_unknown_sources_are_refused(tmp_path):
