@@ -7,12 +7,20 @@ Phases, each printed as it ends:
 0. environment: torch / CUDA versions, the card, ``nvidia-smi``'s name and
    power limit, and the TF32 switch (which must be off);
 1. build of the CUDA kernels from ``csrc/`` (one nvcc per source, together);
-2. the pairwise-distance kernel against its plain PyTorch version on the
-   card, for every metric and both modes, at the JAX kernel test's shapes and
-   at the main-path block ``[2048 x 65536 x 100]``, with the median time of
-   both at that block, of the one library call that computes the same
-   (``torch.addmm`` for normalized cosine, ``torch.cdist`` for L2) and the
-   least time the card could take;
+2. the pairwise-distance kernels against their plain PyTorch versions on the
+   card, for every metric: the exact mode (fp32 FFMA) against
+   ``pairwise_distance``, the fast mode (bf16 dots on the tensor cores, f32
+   accumulate, f32 norms) against ``pairwise_distance_bf16_dots``, at the JAX
+   kernel test's shapes, at shapes that cross the 128-row tiles and at the
+   main-path block ``[2048 x 65536 x 100]`` and at rows too wide for the
+   fast kernel's query tile to stay in shared memory (D = 768); the kernel
+   that prepares a fast-mode operand (bf16 rows bit for bit, norms within 5e-7
+   relative of ``torch.sum``); then for each mode the median time of kernel and
+   plain version at that block, of the library calls that compute the same
+   (``torch.addmm`` for normalized cosine, ``torch.cdist`` for L2,
+   ``torch.matmul`` of the bf16 operands for the fast mode's product), of the
+   operand kernel, of a ``fill_`` of the output, and the least time the card
+   could take;
 3. the binned and folded scan kernels against their plain versions: every
    metric and both modes at the JAX kernel test's shapes (columns identical,
    distances within 1e-5), a tie case (first index wins), and the main shapes
@@ -20,8 +28,9 @@ Phases, each printed as it ends:
    folded into 32 slots; 512 query rows by value, normalized cosine and
    euclidean), then the median time of kernel and plain version at 4096
    query rows beside the bound, the last 512 rows of that launch by value
-   too, and the flat scan's other stages (survivor cut, rerank) at the same
-   block;
+   too, the fast binned scan at rows too wide for a resident query tile
+   (``[4096 x 262,144 x 768]``), and the flat scan's other stages (survivor
+   cut, rerank) at the same block;
 4. the row-gather kernel against its plain version (``index_select``),
    bit for bit: f32, bf16 and int32 rows of the widths the hop gathers, slab
    rows, 1 to 100,000 indices with repeats and both ends of the table; then
@@ -41,7 +50,8 @@ Phases, each printed as it ends:
    and distances identical), cast-only routing without and with slabs
    (recall@10 within 0.02 of the unrouted search after the rerank),
    projected routing (``dr=64``), and one plain search pass under
-   ``torch.profiler`` (busy share and device time by kernel); then on a
+   ``torch.profiler`` (busy share and device time by kernel) and one
+   fast-tier relink of the bottom layer under it too; then on a
    10,000 x 100 index: a build that resumes from its own checkpoint, a
    mutation that drops the slabs, and ``knn(10)``;
 8. persistence: the index goes to a temporary directory and comes back onto
@@ -83,7 +93,12 @@ from parallel_hnsw_tpu_torch import (
 )
 from parallel_hnsw_tpu_torch import analysis
 from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_gather, cuda_scan
-from parallel_hnsw_tpu_torch.ops.distance import batched_distance, pairwise_distance
+from parallel_hnsw_tpu_torch.optimize import link_layer_to_better_neighbors
+from parallel_hnsw_tpu_torch.ops.distance import (
+    batched_distance,
+    pairwise_distance,
+    pairwise_distance_bf16_dots,
+)
 from parallel_hnsw_tpu_torch.search import search as graph_search
 from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
 from parallel_hnsw_tpu_torch.utils.trace import TRACER, enable_tracing
@@ -101,7 +116,15 @@ SMALL_ATOL = 2e-5
 # norms stays within [-1, 1], so two fp32 summation orders differ by at most
 # ~100 half-ulps of 1 (6e-6).
 BLOCK_ATOL = 1e-5
+# Fast mode against its plain version (the same bf16-rounded operands, f32
+# sums): the two differ only in the order, and in the tensor cores' rounding,
+# of f32 sums of exact products.  The small shapes hold unnormalised rows
+# (|dot| up to ~40, L2 sums of ~100, where one f32 ulp is 7.6e-6), so they get
+# a handful of those ulps; the main block holds unit vectors.
+FAST_SMALL_ATOL = 1e-4
+FAST_BLOCK_ATOL = 1e-5
 MAIN_BLOCK = (2048, 65536)
+OPERAND_BIG_ROWS = 1 << 20
 QUERIES = 10_000
 # Recall floors catch a broken kernel or merge; they are not targets.  On
 # uniform 100-d unit vectors held-out queries are the hard case: at ef=300
@@ -121,6 +144,7 @@ FLAT_SIZES = ((1 << 20, "binned"), (1 << 21, "folded"))
 FLAT_RECALL_FLOOR = 0.95
 SCAN_QUERY_BLOCK = 4096  # fast_flat_knn's query block: the kernels' main-path Q
 SCAN_CHECK_ROWS = 512  # query rows held against the plain version at the main shapes
+WIDE_ROWS, WIDE_DIM = 1 << 18, 768  # a usual embedding width, past the resident query tile
 # Scans at the JAX kernel tests' shapes: unit vectors of D <= 16, so the two
 # sides' f32 sums differ by a few ulps of values <= 4 (the JAX tests' bound).
 SCAN_SMALL_ATOL = 1e-5
@@ -158,18 +182,24 @@ def _bound(flops: float, peak_flops: float, nbytes: float) -> dict:
 
 
 def _median_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    """Median over ``reps`` samples of the device time of one call of ``fn``.
+    A call shorter than 2 ms is sampled four at a time between two events: the
+    host prepares the later calls while the card runs the earlier ones, so a
+    short kernel's time is not padded with its wrapper's host time."""
+    def sample(calls):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        return start.elapsed_time(end) / calls
+
+    fn()
+    torch.cuda.synchronize()
+    calls = 4 if sample(1) < 2.0 else 1
+    return float(np.median([sample(calls) for _ in range(reps)]))
 
 
 def _recall_at_10(ids: torch.Tensor, gt_ids: torch.Tensor) -> float:
@@ -177,66 +207,172 @@ def _recall_at_10(ids: torch.Tensor, gt_ids: torch.Tensor) -> float:
     return float(hits) / gt_ids.numel()
 
 
-def check_kernel(device) -> dict:
+def check_kernel(device):
+    """Returns the ``kernels`` entries of the operand kernel and of the
+    pairwise-distance kernel."""
     rng = np.random.default_rng(3)
 
     def unit(n):
         a = rng.uniform(-1.0, 1.0, (n, DIM)).astype(np.float32)
         return a / np.linalg.norm(a, axis=1, keepdims=True)
 
-    cases = [
-        ("70x32/130x32", rng.normal(size=(70, 32)), rng.normal(size=(130, 32)), SMALL_ATOL),
-        ("1x7/3x7", rng.normal(size=(1, 7)), rng.normal(size=(3, 7)), SMALL_ATOL),
-        ("2048x100/65536x100", unit(MAIN_BLOCK[0]), unit(MAIN_BLOCK[1]), BLOCK_ATOL),
-    ]
-    max_err = 0.0
-    for name, xa, ya, atol in cases:
+    # (name, x, y, exact atol, fast atol, rtol).  The JAX test's shapes are
+    # held to its atol alone; then shapes that cross the kernels' 128-row tiles
+    # and 32- / 64-wide chunks of D: their L2 sums reach ~300, where one f32
+    # ulp is 3e-5, so they also get a relative bound of ~8 ulps.
+    def normal(q, c, d, rtol):
+        return (f"{q}x{d}/{c}x{d}", rng.normal(size=(q, d)), rng.normal(size=(c, d)),
+                SMALL_ATOL, FAST_SMALL_ATOL, rtol)
+
+    def unit_rows(n, d):
+        a = rng.normal(size=(n, d)).astype(np.float32)
+        return a / np.linalg.norm(a, axis=1, keepdims=True)
+
+    cases = [normal(70, 130, 32, 0.0), normal(1, 3, 7, 0.0), normal(129, 257, 104, 1e-6),
+             normal(127, 255, 8, 1e-6), normal(256, 383, 136, 1e-6), normal(300, 1030, 65, 1e-6),
+             # wide rows: the fast kernel's query tile streams through the ring
+             ("257x768/1281x768", unit_rows(257, 768), unit_rows(1281, 768),
+              BLOCK_ATOL, FAST_BLOCK_ATOL, 0.0),
+             ("2048x100/65536x100", unit(MAIN_BLOCK[0]), unit(MAIN_BLOCK[1]),
+              BLOCK_ATOL, FAST_BLOCK_ATOL, 0.0)]
+    max_err = {True: 0.0, False: 0.0}
+    for name, xa, ya, atol, fast_atol, rtol in cases:
         x = torch.as_tensor(xa, dtype=torch.float32, device=device)
         y = torch.as_tensor(ya, dtype=torch.float32, device=device)
         for metric in Metric:
-            want = pairwise_distance(x, y, metric)
             for exact in (True, False):
+                want = pairwise_distance(x, y, metric) if exact else pairwise_distance_bf16_dots(x, y, metric)
                 got = cuda_distance.cuda_pairwise_distance(x, y, metric, exact=exact)
                 torch.cuda.synchronize()
+                tol = (atol if exact else fast_atol) + rtol * float(want.abs().max())
                 err = float((got - want).abs().max())
-                max_err = max(max_err, err)
-                print(f"kernel {name} {metric.value} exact={exact}: max_abs_err={err:.3e} (atol {atol:.0e})")
-                assert err <= atol, f"kernel disagrees with plain version: {name} {metric.value} {err}"
-    x = torch.as_tensor(cases[2][1], device=device)
-    y = torch.as_tensor(cases[2][2], device=device)
-    timing = {}
+                max_err[exact] = max(max_err[exact], err)
+                print(f"kernel {name} {metric.value} exact={exact}: max_abs_err={err:.3e} (tolerance {tol:.1e})")
+                assert err <= tol, f"kernel disagrees with plain version: {name} {metric.value} {err}"
+    # the kernel that prepares a fast-mode operand, against its plain version:
+    # rows bit for bit; norms (fp64 sums rounded once, against torch.sum's f32
+    # sums) within 5e-7 of the largest norm
+    operand_err = 0.0
+    for name, xa, ya, *_ in cases:
+        for m in (xa, ya):
+            m = torch.as_tensor(m, dtype=torch.float32, device=device)
+            rows, norms = cuda_distance.cuda_bf16_operand(m, with_norms=True)
+            want_rows, want_norms = cuda_distance.plain_bf16_operand(m, with_norms=True)
+            assert torch.equal(rows, want_rows), f"bf16_operand rows differ from the plain cast: {name}"
+            err = float((norms - want_norms).abs().max())
+            tol = 5e-7 * float(want_norms.max())
+            assert err <= tol, f"bf16_operand norms disagree with torch.sum: {name} {err} > {tol}"
+            assert torch.equal(cuda_distance.cuda_bf16_operand(m)[0], want_rows)
+            operand_err = max(operand_err, err)
+    print(f"bf16_operand: rows bit-identical to the plain cast at every shape above, norms "
+          f"max_abs_err={operand_err:.3e} (tolerance 5e-7 relative)")
+    x = torch.as_tensor(cases[-1][1], device=device)
+    y = torch.as_tensor(cases[-1][2], device=device)
+    exact_ms, fast_ms = {}, {}
     for metric in (Metric.NORMALIZED_COSINE, Metric.EUCLIDEAN):
         # alternate plain, kernel, kernel, plain
         p1 = _median_ms(lambda: pairwise_distance(x, y, metric))
         k1 = _median_ms(lambda: cuda_distance.cuda_pairwise_distance(x, y, metric))
         k2 = _median_ms(lambda: cuda_distance.cuda_pairwise_distance(x, y, metric))
         p2 = _median_ms(lambda: pairwise_distance(x, y, metric))
-        timing[metric] = (min(k1, k2), min(p1, p2))
-        print(f"time at main-path block {metric.value}: kernel {k1:.4f} / {k2:.4f} ms, "
+        exact_ms[metric] = (min(k1, k2), min(p1, p2))
+        print(f"time at main-path block {metric.value} exact: kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.4f} / {p2:.4f} ms")
-    # One library call per metric, timed here and used nowhere in the port:
-    # torch.addmm with a broadcast 0.5 computes 0.5 - 0.5 * x @ y.T
-    # (normalized cosine; alpha = -1 and a 1 or 0 give cosine and dot) in one
-    # cuBLAS call, torch.cdist the euclidean distance.
+        # fast mode as the paths call it: operands prepared once, not per block;
+        # then with both operands prepared inside the call
+        xo = cuda_distance.prepare_operand(x, metric, exact=False)
+        yo = cuda_distance.prepare_operand(y, metric, exact=False)
+        fast = lambda: cuda_distance.cuda_pairwise_distance(xo, yo, metric, exact=False)
+        p1 = _median_ms(lambda: pairwise_distance_bf16_dots(x, y, metric))
+        k1, k2 = _median_ms(fast), _median_ms(fast)
+        p2 = _median_ms(lambda: pairwise_distance_bf16_dots(x, y, metric))
+        whole = _median_ms(lambda: cuda_distance.cuda_pairwise_distance(x, y, metric, exact=False))
+        fast_ms[metric] = (min(k1, k2), min(p1, p2), whole)
+        print(f"time at main-path block {metric.value} fast: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.4f} / {p2:.4f} ms; with both operands prepared in the call "
+              f"(two more launches) {whole:.4f} ms")
+    # the operand kernel at the corpus block, with the norms (the L2 metrics)
+    o1 = _median_ms(lambda: cuda_distance.plain_bf16_operand(y, with_norms=True))
+    ok1 = _median_ms(lambda: cuda_distance.cuda_bf16_operand(y, with_norms=True))
+    ok2 = _median_ms(lambda: cuda_distance.cuda_bf16_operand(y, with_norms=True))
+    o2 = _median_ms(lambda: cuda_distance.plain_bf16_operand(y, with_norms=True))
+    operand_ms, operand_plain_ms = min(ok1, ok2), min(o1, o2)
+    operand_x_ms = _median_ms(lambda: cuda_distance.cuda_bf16_operand(x, with_norms=True))
+    # ... and at a size where the card, not the wrapper's host time, sets the time
+    big = torch.randn((OPERAND_BIG_ROWS, DIM), device=device)
+    big_ms = _median_ms(lambda: cuda_distance.cuda_bf16_operand(big, with_norms=True))
+    big_plain_ms = _median_ms(lambda: cuda_distance.plain_bf16_operand(big, with_norms=True))
+    del big
+    out_fill = torch.empty(MAIN_BLOCK, dtype=torch.float32, device=device)
+    fill_ms = _median_ms(lambda: out_fill.fill_(1.0))
+    del out_fill
+    # Library calls, timed here and used nowhere in the port: torch.addmm with
+    # a broadcast 0.5 computes 0.5 - 0.5 * x @ y.T (normalized cosine; alpha =
+    # -1 and a 1 or 0 give cosine and dot) in one cuBLAS call, torch.cdist the
+    # euclidean distance, torch.matmul of the bf16 operands the fast mode's
+    # product (into a bf16 matrix: half the kernel's output bytes).
     half = torch.full((), 0.5, device=device)
     addmm = lambda: torch.addmm(half, x, y.T, beta=1.0, alpha=-0.5)
     addmm_err = float((addmm() - pairwise_distance(x, y, Metric.NORMALIZED_COSINE)).abs().max())
     assert addmm_err <= BLOCK_ATOL, f"torch.addmm is not the same function: {addmm_err}"
     addmm_ms = min(_median_ms(addmm), _median_ms(addmm))
     cdist_ms = _median_ms(lambda: torch.cdist(x, y))
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    bf16_matmul_ms = _median_ms(lambda: torch.matmul(xb, yb.T))
     q, c = MAIN_BLOCK
+    dpad = DIM + -DIM % 8
+    operand_bound = _bound(2.0 * c * DIM, PEAK_FP32_FLOPS, c * (4.0 * DIM + 2.0 * dpad + 4.0))
+    print(f"bf16_operand at {c} x {DIM} with norms: kernel {ok1:.4f} / {ok2:.4f} ms, plain (cast, "
+          f"pad, torch.sum) {o1:.4f} / {o2:.4f} ms, bound {operand_bound['bound_ms']:.4f} ms by "
+          f"{operand_bound['bound_by']}; at {q} x {DIM}: {operand_x_ms:.4f} ms (the same: at these "
+          f"sizes the time is the wrapper's on the host); at {OPERAND_BIG_ROWS} x {DIM}: kernel "
+          f"{big_ms:.4f} ms ({OPERAND_BIG_ROWS * (4.0 * DIM + 2.0 * dpad + 4.0) / big_ms / 1e9:.2f} "
+          f"TB/s), plain {big_plain_ms:.4f} ms; a fill_ of the "
+          f"{q} x {c} f32 output: {fill_ms:.4f} ms ({4.0 * q * c / fill_ms / 1e9:.2f} TB/s)")
     bound = _bound(2.0 * q * c * DIM, PEAK_FP32_FLOPS, 4.0 * (q * DIM + c * DIM + q * c))
-    ms, plain_ms = timing[Metric.NORMALIZED_COSINE]
-    l2_ms, l2_plain_ms = timing[Metric.EUCLIDEAN]
-    print(f"pairwise_distance at {q} x {c} x {DIM}: bound {bound['bound_ms']:.4f} ms by "
-          f"{bound['bound_by']}; normalized cosine kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.addmm {addmm_ms:.4f} ms; euclidean kernel {l2_ms:.4f} ms, plain "
-          f"{l2_plain_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bound,
+    fast_bound = _bound(2.0 * q * c * DIM, PEAK_BF16_FLOPS, 2.0 * (q + c) * dpad + 4.0 * q * c)
+    ms, plain_ms = exact_ms[Metric.NORMALIZED_COSINE]
+    l2_ms, l2_plain_ms = exact_ms[Metric.EUCLIDEAN]
+    f_ms, f_plain_ms, f_whole_ms = fast_ms[Metric.NORMALIZED_COSINE]
+    f_l2_ms, f_l2_plain_ms, f_l2_whole_ms = fast_ms[Metric.EUCLIDEAN]
+    print(f"pairwise_distance exact at {q} x {c} x {DIM}: bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}; normalized cosine kernel {ms:.4f} ms "
+          f"({2.0 * q * c * DIM / ms / 1e9:.2f} TFLOP/s, {bound['bound_ms'] / ms:.1%} of the bound), "
+          f"plain {plain_ms:.4f} ms, torch.addmm {addmm_ms:.4f} ms (kernel / library "
+          f"{ms / addmm_ms:.3f}); euclidean kernel {l2_ms:.4f} ms, plain {l2_plain_ms:.4f} ms, "
+          f"torch.cdist {cdist_ms:.4f} ms (kernel / library {l2_ms / cdist_ms:.3f})")
+    print(f"pairwise_distance fast at {q} x {c} x {DIM}: bound {fast_bound['bound_ms']:.4f} ms by "
+          f"{fast_bound['bound_by']}; normalized cosine kernel {f_ms:.4f} ms "
+          f"({fast_bound['bound_ms'] / f_ms:.1%} of the bound), plain {f_plain_ms:.4f} ms; "
+          f"euclidean kernel {f_l2_ms:.4f} ms ({f_l2_whole_ms:.4f} ms with both operands prepared "
+          f"in the call), plain {f_l2_plain_ms:.4f} ms; torch.matmul of the "
+          f"bf16 operands {bf16_matmul_ms:.4f} ms (kernel / library {f_ms / bf16_matmul_ms:.3f})")
+    # the exact kernel over D, beside the library call: the intercept is the
+    # output write, the slope the FFMA loop
+    for d in (32, 128, 256, 512):
+        xd = torch.randn((q, d), device=device)
+        yd = torch.randn((c, d), device=device)
+        k_ms = _median_ms(lambda: cuda_distance.cuda_pairwise_distance(xd, yd, Metric.NORMALIZED_COSINE), reps=5)
+        l_ms = _median_ms(lambda: torch.addmm(half, xd, yd.T, beta=1.0, alpha=-0.5), reps=5)
+        print(f"pairwise_distance exact at {q} x {c} x {d}: kernel {k_ms:.4f} ms "
+              f"({2.0 * q * c * d / k_ms / 1e9:.2f} TFLOP/s), torch.addmm {l_ms:.4f} ms "
+              f"({2.0 * q * c * d / l_ms / 1e9:.2f} TFLOP/s)")
+    operand = {"max_abs_err": operand_err, "ms": operand_ms, "plain_ms": operand_plain_ms,
+               **operand_bound, "library_ms": None,
+               "shape": f"[{c} x {DIM}] f32 -> [{c} x {dpad}] bf16 + [{c}] f32 norms",
+               "query_block_ms": operand_x_ms, "big_shape": f"[{OPERAND_BIG_ROWS} x {DIM}]",
+               "big_ms": big_ms, "big_plain_ms": big_plain_ms}
+    return operand, {"max_abs_err": max_err[True], "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": addmm_ms, "library": "torch.addmm",
             "metric": Metric.NORMALIZED_COSINE.value,
             "l2_ms": l2_ms, "l2_plain_ms": l2_plain_ms, "l2_library_ms": cdist_ms,
-            "l2_library": "torch.cdist"}
+            "l2_library": "torch.cdist",
+            "fast_max_abs_err": max_err[False], "fast_ms": f_ms, "fast_plain_ms": f_plain_ms,
+            "fast_bound_ms": fast_bound["bound_ms"], "fast_bound_by": fast_bound["bound_by"],
+            "fast_library_ms": bf16_matmul_ms, "fast_library": "torch.matmul (bf16)",
+            "fast_l2_ms": f_l2_ms, "fast_l2_plain_ms": f_l2_plain_ms,
+            "fast_unprepared_ms": f_whole_ms, "fast_l2_unprepared_ms": f_l2_whole_ms,
+            "output_fill_ms": fill_ms}
 
 
 def _scan_small_cases(device) -> float:
@@ -249,12 +385,15 @@ def _scan_small_cases(device) -> float:
         return torch.as_tensor(a / np.linalg.norm(a, axis=1, keepdims=True), device=device)
 
     # (Q, C, D, tile_c, n_slots): n_slots None = binned
-    shapes = [(16, 300, 8, 256, None), (16, 1500, 8, 256, 4), (24, 3000, 16, 256, 8)]
+    # the last two, fast mode only: rows too wide for the bf16 kernel's query
+    # tile to stay in shared memory
+    shapes = [(16, 300, 8, 256, None), (16, 1500, 8, 256, 4), (24, 3000, 16, 256, 8),
+              (129, 1500, 768, 256, None), (129, 1500, 712, 256, 4)]
     max_err = 0.0
     for q, c, d, tile_c, n_slots in shapes:
         x, y = unit(q, d), unit(c, d)
         for metric in Metric:
-            for exact in (True, False):
+            for exact in (True, False) if d <= 16 else (False,):
                 if n_slots is None:
                     name = "binned_scan"
                     got = cuda_scan.cuda_binned_scan(x, y, metric, tile_c=tile_c, exact=exact)
@@ -275,7 +414,20 @@ def _scan_small_cases(device) -> float:
                       f"exact={exact}: max_abs_err={err:.3e} (atol {SCAN_SMALL_ATOL:.0e}), "
                       f"columns identical: {same}")
                 assert err <= SCAN_SMALL_ATOL, f"{name} disagrees with its plain version: {err}"
-                assert same, f"{name} reports other columns than its plain version"
+                if not same:
+                    # the tensor cores sum a dot in their own order, so a
+                    # near-tie may go to another column: then the plain
+                    # distance AT THE KERNEL'S COLUMN must be the plain minimum
+                    # within the tolerance (exact ties are held below)
+                    assert not exact, f"{name} (f32) reports other columns than its plain version"
+                    differ = got[1] != want[1]
+                    assert bool(fin[differ].all()) and float(differ.float().mean()) < 0.001
+                    xs, ys = x.bfloat16().float(), y.bfloat16().float()
+                    at_col = pairwise_distance(xs, ys, metric)[
+                        differ.nonzero()[:, 0], got[1][differ].long()]
+                    gap = float((at_col - want[0][differ]).abs().max())
+                    print(f"  {int(differ.sum())} near-ties took another column, {gap:.3e} from the minimum")
+                    assert gap <= SCAN_SMALL_ATOL, f"{name} reports columns that are not minima: {gap}"
 
     # ties: class l holds the same row eight times; the first group of each
     # tile, and the first tile of each slot, must win
@@ -358,16 +510,43 @@ def _scan_main_case(name, scan, plain, x, y, metric) -> dict:
         bound = _bound(2.0 * q * c * d, PEAK_FP32_FLOPS if exact else PEAK_BF16_FLOPS,
                        xs.element_size() * (q * d + c * d) + 2 * 4.0 * q * bins)
         print(f"{name} time at {q} x {c} x {d} exact={exact}: kernel {k1:.3f} / {k2:.3f} ms "
-              f"({2.0 * q * c * d / min(k1, k2) / 1e9:.2f} TFLOP/s), plain {p1:.3f} / {p2:.3f} ms, "
+              f"({2.0 * q * c * d / min(k1, k2) / 1e9:.2f} TFLOP/s, "
+              f"{bound['bound_ms'] / min(k1, k2):.1%} of the bound), plain {p1:.3f} / {p2:.3f} ms, "
               f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']}; euclidean kernel "
               f"{l2_ms:.3f} ms")
         out[exact] = {"max_abs_err": max(errs), "ms": min(k1, k2), "plain_ms": min(p1, p2),
                       "l2_ms": l2_ms, **bound}
     # the main path runs the fast mode; the exact mode's numbers ride along
-    return {**out[False], "library_ms": None, "mode": "fast (bf16 in, tensor cores, f32 accumulate)",
+    return {**out[False], "library_ms": None,
+            "mode": "fast (bf16 in, TMA + wgmma tensor cores, f32 accumulate)",
             "max_abs_err": max(out[True]["max_abs_err"], out[False]["max_abs_err"]),
             "exact_ms": out[True]["ms"], "exact_plain_ms": out[True]["plain_ms"],
             "exact_bound_ms": out[True]["bound_ms"], "exact_l2_ms": out[True]["l2_ms"]}
+
+
+def _scan_wide_case(device, metric) -> dict:
+    """The fast binned scan at rows too wide for its query tile to stay in
+    shared memory: ``[4096 x 262,144 x 768]`` unit vectors, 512 query rows
+    against the plain version by value, then the time beside the bound."""
+    q, c, d = SCAN_QUERY_BLOCK, WIDE_ROWS, WIDE_DIM
+    gen = torch.Generator(device=device).manual_seed(7)
+    y = torch.nn.functional.normalize(torch.randn((c, d), generator=gen, device=device))
+    x = torch.nn.functional.normalize(torch.randn((q, d), generator=gen, device=device))
+    xs, ys = cuda_scan.scan_operand(x), cuda_scan.scan_operand(y)
+    scan = lambda a: cuda_scan.cuda_binned_scan(a, ys, metric, tile_c=FLAT_TILE_C, exact=False)
+    head = xs[:SCAN_CHECK_ROWS]
+    err = _check_by_value(
+        "binned_scan", scan(head),
+        cuda_scan.plain_binned_scan(head, ys, metric, tile_c=FLAT_TILE_C, exact=False),
+        head, ys, metric, f"{metric.value} exact=False wide rows")
+    ms = min(_median_ms(lambda: scan(xs), reps=5), _median_ms(lambda: scan(xs), reps=5))
+    bound = _bound(2.0 * q * c * d, PEAK_BF16_FLOPS,
+                   2.0 * (q * d + c * d) + 2 * 4.0 * q * (c // FLAT_TILE_C) * 128)
+    print(f"binned_scan time at {q} x {c} x {d} exact=False (query tile streamed): kernel "
+          f"{ms:.3f} ms ({2.0 * q * c * d / ms / 1e9:.2f} TFLOP/s, {bound['bound_ms'] / ms:.1%} of "
+          f"the bound {bound['bound_ms']:.3f} ms by {bound['bound_by']})")
+    return {"wide_shape": f"{q} x {c} x {d}", "wide_ms": ms, "wide_bound_ms": bound["bound_ms"],
+            "wide_max_abs_err": err}
 
 
 def check_scan_kernels(device, vecs: torch.Tensor) -> dict:
@@ -390,6 +569,7 @@ def check_scan_kernels(device, vecs: torch.Tensor) -> dict:
         x, vecs[: FLAT_SIZES[1][0]], metric)
     for entry in (binned, folded):
         entry["max_abs_err"] = max(entry["max_abs_err"], small_err)
+    binned.update(_scan_wide_case(device, metric))
 
     # the flat scan's other stages at one 4096-query block, beside the kernels
     k_scan = 40
@@ -402,7 +582,7 @@ def check_scan_kernels(device, vecs: torch.Tensor) -> dict:
         cut_ms = _median_ms(lambda: analysis._cut_survivors(bd, bc, 0, k_scan))
         cand = analysis._cut_survivors(bd, bc, 0, k_scan)[0]
         rerank_ms = _median_ms(lambda: analysis._rerank(source, x, cand, metric, 10))
-        cast_ms = _median_ms(lambda: source.vectors.to(torch.bfloat16))
+        cast_ms = _median_ms(lambda: cuda_scan.scan_operand(source.vectors))
         print(f"flat scan stages at {rows} rows, one {SCAN_QUERY_BLOCK}-query block ({mode}): "
               f"kernel {kernel['ms']:.3f} ms, survivor cut (top-{k_scan} of {bd.shape[1]} bins + "
               f"sort) {cut_ms:.3f} ms, rerank (gather + distances + sort) {rerank_ms:.3f} ms; "
@@ -505,7 +685,7 @@ def flat_scan_phase(vecs: torch.Tensor) -> dict:
     queries = vecs[FLAT_SIZES[1][0] :]
     assert queries.shape == (QUERIES, FLAT_DIM)
     query_blocks = -(-QUERIES // SCAN_QUERY_BLOCK)
-    launches = {"binned": 0, "folded": 0, "pairwise_distance": 0}
+    launches = {"binned": 0, "folded": 0, "pairwise_distance": 0, "bf16_operand": 0}
     indexes = []
     for rows, want_mode in FLAT_SIZES:
         index = Hnsw([], DenseSource(vecs[:rows]), metric)
@@ -516,13 +696,18 @@ def flat_scan_phase(vecs: torch.Tensor) -> dict:
         _zero_launches()
         index.search_exact(queries, k=k)
         assert not any(cuda_scan.LAUNCHES.values()), "the exact scan must not run the scan kernels"
-        launches["pairwise_distance"] += sum(cuda_distance.LAUNCHES.values())
+        assert cuda_distance.LAUNCHES["fast"] == cuda_distance.LAUNCHES["operand"] == 0
+        launches["pairwise_distance"] += cuda_distance.LAUNCHES["exact"]
         _zero_launches()
         index.search_exact(queries, k=k, fast=True, oversample=oversample)
         ran = dict(cuda_scan.LAUNCHES)
         assert ran == {want_mode: query_blocks, other: 0}, (
             f"auto mode at {rows} rows launched {ran}, not {query_blocks} {want_mode} scans")
-        assert not any(cuda_distance.LAUNCHES.values()), "the fast scan ran the pairwise kernel"
+        assert cuda_distance.LAUNCHES["exact"] == cuda_distance.LAUNCHES["fast"] == 0, (
+            "the fast scan ran the pairwise kernel")
+        # the corpus once and each query block once
+        assert cuda_distance.LAUNCHES["operand"] == 1 + query_blocks
+        launches["bf16_operand"] += cuda_distance.LAUNCHES["operand"]
         launches[want_mode] += ran[want_mode]
         (gt_ids, gt_d), exact_s = _timed_s(lambda: index.search_exact(queries, k=k))
         (ids, dists), fast_s = _timed_s(
@@ -636,31 +821,54 @@ def traversal_phase(hnsw: Hnsw, queries: torch.Tensor, gt_ids: torch.Tensor,
     return max(plain_qps, after_qps)
 
 
-def profile_search(hnsw: Hnsw, queries: torch.Tensor, plain_qps: float) -> None:
-    """One ``search`` pass under ``torch.profiler``: the device time by
-    kernel and its share of the pass's wall time WITHOUT the profiler (which
-    slows the host loop, not the kernels).  A record, not a check: nothing
-    is asserted on it."""
+def _device_profile(label: str, fn, wall_ms=None) -> None:
+    """One call of ``fn`` under ``torch.profiler``: the device time by kernel
+    and its share of the call's wall time WITHOUT the profiler where the
+    caller knows it (the profiler slows a host loop, not the kernels), else
+    of the profiled wall time.  A record, not a check: nothing is asserted."""
     torch.cuda.synchronize()
     # device activity only: host-side operator events would triple the trace
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
-        hnsw.search(queries)
+        fn()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - ts) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
-        print("search profile: the profiler recorded no device time (not measured)")
+        print(f"{label}: the profiler recorded no device time (not measured)")
         return
     busy_ms = sum(ms for _, ms, _ in rows)
-    wall_ms = queries.shape[0] / plain_qps * 1e3
-    print(f"search profile, one pass of {queries.shape[0]} queries under torch.profiler: device "
-          f"busy {busy_ms:.1f} ms in {sum(n for _, _, n in rows)} kernels, {busy_ms / wall_ms:.1%} "
-          f"of the {wall_ms:.1f} ms the pass takes unprofiled ({profiled_ms:.1f} ms profiled); "
-          f"by kernel:")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+    against = (f"{busy_ms / wall_ms:.1%} of the {wall_ms:.1f} ms it takes unprofiled "
+               f"({profiled_ms:.1f} ms profiled)" if wall_ms else
+               f"{busy_ms / profiled_ms:.1%} of the {profiled_ms:.1f} ms it took under the profiler")
+    print(f"{label} under torch.profiler: device busy {busy_ms:.1f} ms in "
+          f"{sum(n for _, _, n in rows)} kernels, {against}; by kernel:")
+    rows.sort(key=lambda r: -r[1])
+    # the twelve largest, and the port's own kernels wherever they stand
+    own = ("pairwise_kernel", "operand_kernel", "scan_kernel", "row_sq_norms", "row_gather_kernel")
+    for key, ms, count in rows[:12] + [r for r in rows[12:] if any(name in r[0] for name in own)]:
         print(f"  {ms:9.2f} ms {count:7d} x  {key[:100]}")
+
+
+def profile_phase(hnsw: Hnsw, queries: torch.Tensor, plain_qps: float) -> None:
+    """Device profiles of one plain search pass and of one fast-tier relink of
+    the bottom layer (the brute-force tier that launches the pairwise kernel's
+    fast mode; idempotent on a finished index, its result is dropped)."""
+    _device_profile(f"search profile, one pass of {queries.shape[0]} queries",
+                    lambda: hnsw.search(queries), queries.shape[0] / plain_qps * 1e3)
+    bottom = len(hnsw.layers) - 1
+    tiers = []
+
+    def relink():
+        tiers.append(link_layer_to_better_neighbors(
+            hnsw.layers, bottom, hnsw.source, hnsw.metric,
+            hnsw.build_parameters.optimization.search)[1:])
+
+    before = dict(cuda_distance.LAUNCHES)
+    _device_profile(f"relink profile, bottom layer of {hnsw.layers[bottom].node_count} nodes", relink)
+    ran = {k: cuda_distance.LAUNCHES[k] - before[k] for k in before}
+    print(f"relink profile: tier {tiers[0][1]}, {tiers[0][0]} rows changed, pairwise launches {ran}")
 
 
 def small_index_phase(vecs: torch.Tensor) -> None:
@@ -753,7 +961,7 @@ def main() -> None:
     t = _phase("1 kernel build", t)
 
     # 2. pairwise-distance kernel against its plain version
-    kernel = check_kernel(device)
+    operand, kernel = check_kernel(device)
     t = _phase("2 pairwise kernel check", t)
 
     # 3. scan kernels against their plain versions
@@ -780,9 +988,10 @@ def main() -> None:
     print(f"layers: {[l.node_count for l in hnsw.layers]}")
     print(TRACER.format_summary())
     print(f"launches after build: {cuda_distance.LAUNCHES} {cuda_gather.LAUNCHES}")
-    assert cuda_distance.LAUNCHES["exact"] > 0 and cuda_distance.LAUNCHES["fast"] > 0, (
-        "the build did not run the kernel in both modes"
+    assert all(n > 0 for n in cuda_distance.LAUNCHES.values()), (
+        "the build did not run the kernel in both modes, or not the operand kernel"
     )
+    build_launches = dict(cuda_distance.LAUNCHES)
     stochastic = hnsw.stochastic_recall()
     print(f"stochastic recall: {stochastic}")
     hnsw.assert_invariants()
@@ -812,8 +1021,10 @@ def main() -> None:
     assert in_corpus >= IN_CORPUS_RECALL_FLOOR, f"in-corpus recall@10 {in_corpus} below {IN_CORPUS_RECALL_FLOOR}"
     print(f"stochastic_recall(): {stochastic}")
     assert stochastic >= STOCHASTIC_RECALL_FLOOR, f"stochastic recall {stochastic} below {STOCHASTIC_RECALL_FLOOR}"
-    launches = sum(cuda_distance.LAUNCHES.values())
-    print(f"launches in the main path: {cuda_distance.LAUNCHES} {cuda_gather.LAUNCHES}")
+    launches = cuda_distance.LAUNCHES["exact"] + cuda_distance.LAUNCHES["fast"]
+    operand_launches = cuda_distance.LAUNCHES["operand"]
+    print(f"launches in the main path: {cuda_distance.LAUNCHES} {cuda_gather.LAUNCHES} "
+          f"(of them in the build: {build_launches}; the rest are the exact scans of this phase)")
     gather_launches_build_and_search = cuda_gather.LAUNCHES["row_gather"]
     # the row-gather kernel's count: ONE search pass, zeroed just before it
     _zero_launches()
@@ -826,7 +1037,7 @@ def main() -> None:
 
     # 7. the other traversals
     phase_qps = traversal_phase(hnsw, queries, gt_ids, ids, dists)
-    profile_search(hnsw, queries, phase_qps)
+    profile_phase(hnsw, queries, phase_qps)
     small_index_phase(vecs)
     t = _phase("7 routed, slab, instrumented and adaptive search", t)
 
@@ -849,6 +1060,15 @@ def main() -> None:
             "launches": launches,
             "launches_flat_scan_path": flat_launches["pairwise_distance"],
             **kernel,
+        },
+        {
+            "name": "bf16_operand",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/pairwise_distance.cu",
+            "replaces": "parallel_hnsw_tpu/ops/pallas_distance.py:46",
+            "launches": operand_launches,
+            "launches_flat_scan_path": flat_launches["bf16_operand"],
+            **operand,
         },
         {
             "name": "binned_scan",

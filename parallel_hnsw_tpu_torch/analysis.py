@@ -17,8 +17,8 @@ import torch
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE, MATRIX_BYTE_BUDGET
 from parallel_hnsw_tpu_torch.graph import Layer, Source, materialize_source, source_get
-from parallel_hnsw_tpu_torch.ops.cuda_distance import best_pairwise_distance
-from parallel_hnsw_tpu_torch.ops.cuda_scan import LANES, binned_scan, folded_scan
+from parallel_hnsw_tpu_torch.ops.cuda_distance import best_pairwise_distance, prepare_operand
+from parallel_hnsw_tpu_torch.ops.cuda_scan import LANES, binned_scan, folded_scan, scan_operand
 from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance
 from parallel_hnsw_tpu_torch.ops.queues import sort_queue
 from parallel_hnsw_tpu_torch.params import SearchParams
@@ -110,8 +110,9 @@ def fast_flat_knn(
 
     The speed engine for dense corpora: a scan that keeps ``oversample * k``
     survivors per query and a full-precision rerank of them.  Below 200k
-    rows the scan is exhaustive per block (the pairwise-distance kernel; its
-    recall equals the exact scan's).  At or above that it switches to the
+    rows the scan is exhaustive per block (the pairwise-distance kernel's
+    fast mode: bf16 dots on the card, fp32 on the CPU, where its recall
+    equals the exact scan's).  At or above that it switches to the
     fused binned-scan kernel (``ops.cuda_scan``) on bf16 operands: each
     distance tile reduces to per-congruence-class minima inside the kernel,
     so the ``[Q, C]`` matrix never reaches device memory.  A true neighbor is
@@ -136,23 +137,24 @@ def fast_flat_knn(
     corpus_block = flat_corpus_block(n, mode, queries.is_cuda, query_block, corpus_block, tile_c)
     queries = queries.contiguous()
     vectors = materialize_source(source).contiguous()
-    if mode != "exhaustive":
-        # the scans round their operands to bf16; do it once, not per block
-        vectors, scan_queries = vectors.to(torch.bfloat16), queries.to(torch.bfloat16)
-    else:
-        scan_queries = queries
+    # the fast kernels take bf16 copies of their operands: made once, not per block
+    exhaustive = mode == "exhaustive"
+    vectors = prepare_operand(vectors, metric, exact=False) if exhaustive else scan_operand(vectors)
     out_i, out_d = [], []
     for qs in range(0, queries.shape[0], query_block):
-        q = scan_queries[qs : qs + query_block]
+        q = queries[qs : qs + query_block]
+        q = prepare_operand(q, metric, exact=False) if exhaustive else scan_operand(q)
         best_i = best_d = None
         for cs in range(0, n, corpus_block):
-            vecs = vectors[cs : cs + corpus_block]
-            kk = min(k_scan, vecs.shape[0])
+            kk = min(k_scan, n - cs, corpus_block)
             if mode == "folded":
+                vecs = vectors[cs : cs + corpus_block]
                 bd, bc = folded_scan(q, vecs, metric, tile_c=tile_c, exact=False)
             elif mode == "binned":
+                vecs = vectors[cs : cs + corpus_block]
                 bd, bc = binned_scan(q, vecs, metric, tile_c=tile_c, exact=False)
             else:
+                vecs = vectors.narrow(cs, cs + corpus_block)
                 bd, bc = best_pairwise_distance(q, vecs, metric, exact=False), None
             idx, dd = _cut_survivors(bd, bc, cs, kk)
             if best_i is None:
@@ -216,10 +218,11 @@ def blocked_topk_pairwise(
 
     ``fast=True`` is the million-row mode: it keeps ``oversample * k``
     survivors per block and restores exact ordering with a rerank of the
-    survivors before cutting to ``k``.  The JAX package scans those blocks at
-    bf16 MXU precision with ``approx_min_k``; here the kernel stays fp32 and
-    the survivor selection is an exact ``torch.topk``, which can only raise
-    recall.
+    survivors before cutting to ``k``.  Like the JAX package on a TPU, the
+    scan of those blocks is a bf16 product with f32 accumulation on a CUDA
+    tensor (fp32 on a CPU tensor) and the rerank is fp32; the JAX package
+    selects survivors with ``approx_min_k``, here it is an exact
+    ``torch.topk``, which can only raise recall.
     """
     queries, corpus_feats = queries.contiguous(), corpus_feats.contiguous()
     n = corpus_feats.shape[0]
@@ -229,16 +232,19 @@ def blocked_topk_pairwise(
     col_eff = min(col_block, n)
     row_block = max(256, min(row_block, MATRIX_BYTE_BUDGET // (col_eff * 4)))
 
+    # what the fast mode's kernel needs of the corpus is made once per call
+    corpus = prepare_operand(corpus_feats, metric, exact=not fast)
     out_i, out_d = [], []
     for rs in range(0, queries.shape[0], row_block):
         q = queries[rs : rs + row_block]
+        q_op = prepare_operand(q, metric, exact=not fast)
         best_i = best_d = None
         for cs in range(0, n, col_block):
-            c = corpus_feats[cs : cs + col_block]
-            d = best_pairwise_distance(q, c, metric, exact=not fast)
+            d = best_pairwise_distance(q_op, corpus.narrow(cs, cs + col_block), metric,
+                                       exact=not fast)
             if exclude_diag_offset is not None:
                 _mask_diagonal(d, exclude_diag_offset + rs, cs)
-            dd, idx = torch.topk(d, min(k_scan, c.shape[0]), dim=-1, largest=False)
+            dd, idx = torch.topk(d, min(k_scan, d.shape[1]), dim=-1, largest=False)
             # (dist, id) order, so ties are settled by id as lax.top_k settles
             # them by index
             idx, dd = sort_queue((idx + cs).to(ID_DTYPE), dd)

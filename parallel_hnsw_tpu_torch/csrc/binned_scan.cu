@@ -25,10 +25,11 @@
 //
 // s = 2 and w[c] = |y[c]|^2 for the L2 metrics, else s = 1 and w = 0; columns
 // c >= C count as +inf (masked here, no padded copy of the corpus is made).
-// Neither norm is an input: a block sums |y[c]|^2 of each group of 128 corpus
-// rows, and |x|^2 of its query rows for the binned epilogue, in f32 from the
-// chunks it has staged in shared memory for the product anyway (the L2
-// metrics are an instantiation of their own; the others carry none of it).
+// Neither norm is an input: the f32 kernel sums |y[c]|^2 of each group of 128
+// corpus rows, and |x|^2 of its query rows for the binned epilogue, from the
+// chunks it has staged in shared memory for the product anyway; the bf16
+// entries sum them in a pre-pass of the same launch (the L2 metrics are an
+// instantiation of their own; the others carry none of it).
 // Strict < from (+inf, first column of the class) keeps the first index on
 // ties and reports that column for a class that is all padding.
 //
@@ -38,32 +39,53 @@
 // 2 * Q * C * D = 1.1 TFLOP: it is bound by operations, 16.4 ms at the 67
 // TFLOP/s fp32 peak in exact mode and 1.1 ms at the 989 TFLOP/s bf16
 // tensor-core peak in fast mode.  The [Q, C] matrix (16 GiB at that shape)
-// never exists: that is the point of the kernel.
+// never exists: that is the point of the kernel.  In fast mode the second
+// limit is the fold: about 4 ALU operations per (query, column) pair on top
+// of a product that needs 1/8 of an issue slot per pair, so the fold has to
+// run UNDER the tensor cores.  Every 128-row query tile pulls the corpus
+// through L2 once (3.7 TB/s at the main shape, which L2 sustains).
 //
 // Two kernels, by operand type:
 //
-// * exact mode, f32 in: the shared-memory-tiled fp32 FFMA product of
-//   pairwise_distance.cu (64 x 64 tile, 256 threads, 4 x 4 micro-tile, D
-//   walked in chunks of 16, dots summed as 8-FFMA partials like the plain
-//   version's matmul).  A block owns 64 query rows and one half (64) of the
-//   128 classes of a unit.
-// * fast mode, bf16 in: the tensor cores (mma.sync m16n8k16, f32 accumulate;
-//   products of bf16 values are exact in f32).  A block owns 64 query rows
-//   and all 128 classes of a unit; 8 warps as 2 x 4, each a 32 x 32 warp tile
-//   = 2 x 4 mma tiles.  Operands go global -> registers -> shared memory in
-//   chunks of 32 along D, two buffers: the next chunk's loads are in flight
-//   while the tensor cores work on this one, one barrier per chunk.  Rows are
-//   40 bf16 (80 bytes) apart in shared memory, so the eight 16-byte rows of
-//   an ldmatrix phase fall into eight different bank groups.
+// * exact mode, f32 in (namespace simt): the shared-memory-tiled fp32 FFMA
+//   product (64 x 64 tile, 256 threads, 4 x 4 micro-tile, D walked in chunks
+//   of 16, dots summed as 8-FFMA partials like the plain version's matmul).
+//   A block owns 64 query rows and one half (64) of the 128 classes of a
+//   unit.  No path launches it yet (the flat scan is fast mode only).
+// * fast mode, bf16 in (namespace wg): the mainloop of bf16_tile.cuh.  A
+//   block of three warpgroups owns 128 query rows, loaded once by TMA and
+//   resident in shared memory for the whole walk, and a range of consecutive
+//   units.  The producer warpgroup streams the corpus through a ring of up to
+//   eight 16 KB stages (TMA, an mbarrier pair per stage; rows past the corpus
+//   arrive as zeros).  Two consumer warpgroups of 64 query rows each multiply
+//   a group of 128 corpus rows with m64n128k16 wgmma (64 accumulator
+//   registers a thread), hand the stages back and fold the group into running
+//   (minimum, group index) pairs in registers while the OTHER warpgroup's
+//   products occupy the tensor cores.  The fold is one FFMA (w - 2 dot), one
+//   compare and two selects per pair for the L2 metrics; the other metrics
+//   compare the dot itself (the surrogate is -dot) and negate at the end.
+//   |y|^2 of the corpus rows (+inf past the corpus, so the L2 fold needs no
+//   mask) and |x|^2 of the query rows are summed once per launch by a small
+//   pre-pass kernel into scratch that the wrapper allocates; a group's 128
+//   norms then ride into shared memory on the barrier of its last chunk.
+//   Rows must be a multiple of 16 bytes for the tensor maps: the wrapper
+//   zero-pads D to a multiple of 8.  Rows too wide for the query tile to stay
+//   resident beside three stages (D > 640) stream it through the stages
+//   beside the corpus chunks (bf16_tile.cuh), so any D is taken.
 //
 // In both, a thread meets the same (row, class) pairs in every group of 128
-// corpus rows, so it compares its fresh surrogates with running (minimum,
-// column) pairs in its own registers: the reduction never leaves the thread.
-// Query tiles vary fastest across the grid, so the blocks resident together
-// read the same corpus rows and share them in L2.
+// corpus rows, so the reduction never leaves the thread.  Query tiles vary
+// fastest across the grid, so the blocks resident together read the same
+// corpus rows and share them in L2.
 //
-// Later work for the fast mode: cp.async or TMA in place of the register
-// staging, more stages, and wgmma (mma.sync cannot reach the full rate).
+// What is left in the fast mode (NVIDIA H100 80GB HBM3, 700 W): the tensor
+// cores are 47% busy, because a warpgroup waits for its 8 wgmmas and then
+// folds.  Tried and measured without gain: named-barrier turns between the
+// warpgroups, two m64n64 halves in flight per warpgroup (ptxas serializes
+// the wgmmas of such a loop and spills), clusters of two blocks sharing each
+// corpus chunk by TMA multicast (so L2 traffic is not the limit).  Untried:
+// the query fragments in registers, and the survivor cut fused behind the
+// fold.
 //
 // Plain C interface for ctypes: launches on the given stream, allocates
 // nothing, returns cudaGetLastError().
@@ -72,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+
+#include "bf16_tile.cuh"
 
 namespace {
 
@@ -292,261 +316,249 @@ int launch(const void* x, const void* y, float* outd, int* outi, int q, int c, i
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// Fast mode: bf16 operands on the tensor cores.
+// Fast mode: bf16 operands on the tensor cores (wgmma), fed by TMA.
 
-namespace mma {
+namespace wg {
 
-constexpr int BM = 64;                    // query rows per block
-constexpr int BN = LANES;                 // all classes of the unit
-constexpr int BK = 32;                    // D-chunk per shared-memory stage
-constexpr int SKEW = 8;                   // row stride 40 bf16: conflict-free ldmatrix
-constexpr int WM = 32, WN = 32;           // warp tile
-constexpr int MI = WM / 16, NI = WN / 8;  // mma tiles per warp tile
-constexpr int SEGS = BK / 8;              // 16-byte segments per staged row
-constexpr int XV = BM * SEGS / THREADS;   // 16-byte loads per thread and chunk: 1
-constexpr int YV = BN * SEGS / THREADS;   // 2
-static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "one warp tile per warp");
+using namespace bf16_tile;
 
-// Eight consecutive bf16 of row `row` from column k, zero beyond the matrix.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ m, long long row,
-                                       int n_rows, int k, int d, bool vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (row >= n_rows || k >= d) return v;
-  const __nv_bfloat16* p = m + (size_t)row * d + k;
-  if (vec && k + 8 <= d) return __ldg(reinterpret_cast<const uint4*>(p));
-  unsigned h[8];
+constexpr int THREADS = bf16_tile::THREADS;  // 384, not the f32 kernel's 256
+constexpr int NORM_SLOTS = MAX_STAGES + 1;  // see the producer: one more than groups in flight
+constexpr int NORM_LANES = 8;               // lanes that share a row in row_sq_norms
+
+// Shared memory beside the tiles.
+struct Ctrl {
+  Ring ring;
+  alignas(16) float w[NORM_SLOTS][LANES];  // |y|^2 per corpus row of a group (L2)
+};
+
+// out[r] = sum of squares of row r of m [rows, d] (bf16, d a multiple of 8,
+// rows 16-byte aligned) in f32, and +inf for r in [rows, padded_rows): a row
+// past the matrix never wins a minimum.  Eight lanes share a row and read
+// consecutive 16-byte pieces.
+__global__ void row_sq_norms(const uint4* __restrict__ m, int rows, int d, int padded_rows,
+                             float* __restrict__ out) {
+  const long long id = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = id / NORM_LANES;
+  const int piece0 = static_cast<int>(id % NORM_LANES);
+  const int pieces = d / 8;
+  float sum[2] = {0.0f, 0.0f};
+  if (row < rows) {
+    const uint4* src = m + (size_t)row * pieces;
+    for (int piece = piece0; piece < pieces; piece += NORM_LANES) {
+      const uint4 v = __ldg(src + piece);
+      const unsigned words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = (k + e < d) ? __bfloat16_as_ushort(p[e]) : 0u;
-  v.x = h[0] | (h[1] << 16);
-  v.y = h[2] | (h[3] << 16);
-  v.z = h[4] | (h[5] << 16);
-  v.w = h[6] | (h[7] << 16);
-  return v;
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, one 16-byte row per lane:
-// matrices 0..3 from the rows that lanes 0-7, 8-15, 16-23, 24-31 hand in.
-__device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,
-                                            const void* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// acc + the squares of the eight bf16 packed in v, in f32.
-__device__ __forceinline__ float add_squares(uint4 v, float acc) {
-  const unsigned words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lo = __uint_as_float(words[i] << 16);
-    const float hi = __uint_as_float(words[i] & 0xffff0000u);
-    acc = fmaf(lo, lo, acc);
-    acc = fmaf(hi, hi, acc);
+      for (int i = 0; i < 4; ++i) {
+        const float lo = __uint_as_float(words[i] << 16);
+        const float hi = __uint_as_float(words[i] & 0xffff0000u);
+        sum[0] = fmaf(lo, lo, sum[0]);
+        sum[1] = fmaf(hi, hi, sum[1]);
+      }
+    }
   }
-  return acc;
+  float total = sum[0] + sum[1];
+#pragma unroll
+  for (int step = NORM_LANES / 2; step > 0; step /= 2)
+    total += __shfl_xor_sync(0xffffffffu, total, step);
+  if (piece0 == 0 && row < padded_rows) out[row] = row < rows ? total : CUDART_INF_F;
 }
 
-// c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// RAW and L2 as in simt::scan_kernel.  blockIdx.x = query tile + n_q_tiles * unit.
-// In the accumulator fragment of an mma tile, lane (grp, tig) holds rows
-// grp and grp + 8 at columns 2 * tig and 2 * tig + 1: element e is row
-// grp + 8 * (e / 2), column 2 * tig + e % 2.
+// RAW and L2 as in simt::scan_kernel.  blockIdx.x = query tile + n_q_tiles *
+// (range of `units_per_block` consecutive units).  The units of a block are
+// contiguous corpus rows, so the producer streams groups of 128 rows from the
+// first unit's base to the end of the last (or of the corpus) without regard
+// to unit borders; the consumers reset their running minima at each border.
+// w [C rounded up to 128] and x2 [Q]: row_sq_norms of y and x (L2 only).
 template <bool RAW, bool L2>
-__global__ void __launch_bounds__(THREADS, 2)
-scan_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-            float* __restrict__ outd, int* __restrict__ outi, int q, int c, int d, int span,
-            int n_q_tiles, int out_width, int metric, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][BM][BK + SKEW];
-  __shared__ __align__(16) __nv_bfloat16 ys[2][BN][BK + SKEW];
-  __shared__ float wsm[BN];   // |y|^2 of the group's rows (L2)
-  __shared__ float x2sm[BM];  // |x|^2 of the block's rows (L2, binned)
+__global__ void __launch_bounds__(THREADS, 1)
+scan_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_y,
+            const float* __restrict__ w, const float* __restrict__ x2,
+            float* __restrict__ outd, int* __restrict__ outi, int q, int c, int span,
+            int n_q_tiles, int n_units, int units_per_block, int metric, Walk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + ALIGN - 1) / ALIGN * ALIGN);
+  unsigned char* ring_tiles = tiles + query_tile_bytes(walk);
+  Ctrl* ctrl = reinterpret_cast<Ctrl*>(ring_tiles + walk.stages * stage_bytes(walk));
+  const uint32_t x_addr = smem_u32(tiles);
+  const uint32_t ring_addr = smem_u32(ring_tiles);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
-  const int grp = lane / 4, tig = lane % 4;
-  const int row0 = static_cast<int>(blockIdx.x % n_q_tiles) * BM;
-  const int unit = blockIdx.x / n_q_tiles;
-  const int base = unit * span;  // < C rounded up to units: fits an int (the wrapper checks)
-  const int n_groups = groups_in_span(base, span, c);
-  const int nk = (d + BK - 1) / BK;
-  const float scale = L2 ? 2.0f : 1.0f;
+  const int row0 = static_cast<int>(blockIdx.x % n_q_tiles) * TILE_ROWS;
+  const int u0 = static_cast<int>(blockIdx.x / n_q_tiles) * units_per_block;
+  const int u1 = min(u0 + units_per_block, n_units);
+  const int norm_slots = walk.stages + 1;
 
-  float acc[MI][NI][4];
-  float best_t[MI][NI][4];
-  int best_col[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mi][ni][e] = 0.0f;
-        best_t[mi][ni][e] = CUDART_INF_F;
-        best_col[mi][ni][e] = base + wn * WN + ni * 8 + tig * 2 + e % 2;
-      }
-
-  // staging: thread -> (row, 16-byte segment) of the x and y chunks
-  uint4 sx[XV], sy[YV];
-  int pg = 0, pk = 0;  // the next chunk to fetch: group, chunk along D
-  auto fetch = [&]() {
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int idx = tid + v * THREADS;
-      sx[v] = load8(x, row0 + idx / SEGS, q, pk * BK + (idx % SEGS) * 8, d, vec);
-    }
-#pragma unroll
-    for (int v = 0; v < YV; ++v) {
-      const int idx = tid + v * THREADS;
-      sy[v] = load8(y, (long long)base + (long long)pg * LANES + idx / SEGS, c,
-                    pk * BK + (idx % SEGS) * 8, d, vec);
-    }
-    if (++pk == nk) {
-      pk = 0;
-      ++pg;
-    }
-  };
-  auto put = [&](int buf) {
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int idx = tid + v * THREADS;
-      *reinterpret_cast<uint4*>(&xs[buf][idx / SEGS][(idx % SEGS) * 8]) = sx[v];
-    }
-#pragma unroll
-    for (int v = 0; v < YV; ++v) {
-      const int idx = tid + v * THREADS;
-      *reinterpret_cast<uint4*>(&ys[buf][idx / SEGS][(idx % SEGS) * 8]) = sy[v];
-    }
-  };
-
-  if (n_groups > 0) {
-    fetch();
-    put(0);
+  if (tid == 0) {
+    init_ring(&ctrl->ring, walk.stages, CONSUMER_WARPS);
+    mbar_fence_init();
   }
   __syncthreads();
-  int buf = 0;
-  for (int g = 0; g < n_groups; ++g) {
-    // L2: two threads sum |y|^2 of a staged corpus row, 16 of the chunk's
-    // values each; in the first group four threads sum |x|^2 of a query row
-    // (rows and values past the matrix are staged as zeros)
-    float ynorm = 0.0f, xnorm = 0.0f;
-    for (int kc = 0; kc < nk; ++kc) {
-      const bool more = pg < n_groups;
-      if (more) fetch();  // in flight while the tensor cores work on this chunk
 
-      if (L2) {
-        const uint4* yrow = reinterpret_cast<const uint4*>(&ys[buf][tid / 2][(tid % 2) * 16]);
-        ynorm = add_squares(yrow[1], add_squares(yrow[0], ynorm));
-        if (!RAW && g == 0)
-          xnorm = add_squares(
-              *reinterpret_cast<const uint4*>(&xs[buf][tid / 4][(tid % 4) * 8]), xnorm);
-      }
-
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        unsigned a[MI][4], b[NI][2];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)  // rows 0-7 and 8-15 at k, then both at k + 8
-          ldmatrix_x4(a[mi][0], a[mi][1], a[mi][2], a[mi][3],
-                      &xs[buf][wm * WM + mi * 16 + lane % 16][kk + (lane / 16) * 8]);
-#pragma unroll
-        for (int ni = 0; ni < NI; ni += 2)  // classes 0-7 at k and k + 8, then classes 8-15
-          ldmatrix_x4(b[ni][0], b[ni][1], b[ni + 1][0], b[ni + 1][1],
-                      &ys[buf][wn * WN + ni * 8 + lane % 8 + (lane / 16) * 8]
-                         [kk + ((lane / 8) % 2) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-      }
-      // the other buffer was last read before the previous barrier
-      if (more) put(buf ^ 1);
-      __syncthreads();
-      buf ^= 1;
-    }
-
-    if (L2) {
-      // the previous group's fold read wsm before the barriers of this
-      // group's chunks
-      ynorm += __shfl_xor_sync(0xffffffffu, ynorm, 1);
-      if (tid % 2 == 0) wsm[tid / 2] = ynorm;
-      if (!RAW && g == 0) {
-        xnorm += __shfl_xor_sync(0xffffffffu, xnorm, 1);
-        xnorm += __shfl_xor_sync(0xffffffffu, xnorm, 2);
-        if (tid % 4 == 0) x2sm[tid / 4] = xnorm;
-      }
-      __syncthreads();
-    }
-    // the group's dots are complete: fold them into the running minima
-    const long long col0 = (long long)base + (long long)g * LANES + wn * WN + tig * 2;
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const long long col = col0 + ni * 8 + e;
-        const bool real = col < c;
-        const float wc = L2 ? wsm[wn * WN + tig * 2 + ni * 8 + e] : 0.0f;
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int el = h * 2 + e;
-            fold(acc[mi][ni][el], wc, scale, real, static_cast<int>(col), best_t[mi][ni][el],
-                 best_col[mi][ni][el]);
-            acc[mi][ni][el] = 0.0f;
+  if (warp >= CONSUMER_WARPS) {
+    // ---- producer warpgroup: its first thread keeps the ring full
+    give_registers<40>();
+    if (tid == CONSUMER_WARPS * 32) {
+      load_query_tile(&map_x, &ctrl->ring, x_addr, walk, row0);
+      // the block's groups: rows [u0 * span, min(u1 * span, c)) in steps of 128
+      // (u1 * span fits an int: the wrapper checks C rounded up to units)
+      const int end_row = min(u1 * span, c);
+      Ring* ring = &ctrl->ring;
+      Cursor cur;
+      int slot = 0;
+      for (int row = u0 * span; row < end_row; row += LANES) {
+        for (int kc = 0; kc < walk.nk; ++kc) {
+          // L2: the group's |y|^2 ride on the barrier of its last chunk.  A
+          // slot is rewritten stages + 1 groups later; by then the consumers
+          // have handed back a chunk of a later group than that slot's, so
+          // they are past its fold.
+          const bool with_w = L2 && kc == walk.nk - 1;
+          uint64_t* full = load_chunk(&map_x, &map_y, ring, ring_addr, cur, walk, kc, row0, row,
+                                      with_w ? LANES * 4 : 0);
+          if (with_w) {
+            bulk_load(smem_u32(ctrl->w[slot]), w + row, LANES * 4, full);
+            if (++slot == norm_slots) slot = 0;
           }
-      }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wm * WM + mi * 16 + grp + h * 8;
-      if (row >= q) continue;
-      const float xx = (!RAW && L2 && n_groups > 0) ? x2sm[wm * WM + mi * 16 + grp + h * 8] : 0.0f;
-      const size_t o = (size_t)row * out_width + (size_t)unit * LANES + wn * WN + tig * 2;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        float t0 = best_t[mi][ni][h * 2], t1 = best_t[mi][ni][h * 2 + 1];
-        if (!RAW) {
-          t0 = finish_bin(t0, xx, metric);
-          t1 = finish_bin(t1, xx, metric);
         }
-        // an even column of a row whose width is a multiple of 128: 8-byte aligned
-        *reinterpret_cast<float2*>(outd + o + ni * 8) = make_float2(t0, t1);
-        *reinterpret_cast<int2*>(outi + o + ni * 8) =
-            make_int2(best_col[mi][ni][h * 2], best_col[mi][ni][h * 2 + 1]);
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    take_registers<232>();
+    const int wgi = warp / 4, wiw = warp % 4;
+    const int grp = lane / 4, tig = lane % 4;
+    const int lrow = wgi * WG_ROWS + wiw * 16 + grp;  // and lrow + 8
+    const uint32_t wg_off = wgi * WG_BYTES;
+    Cursor cur;
+    int slot = 0;
+    float acc[64];
+    wait_query_tile(&ctrl->ring, walk);
+
+    for (int unit = u0; unit < u1; ++unit) {
+      const int base = unit * span;
+      const int n_groups = groups_in_span(base, span, c);
+      // L2: running minimum of w - 2 dot; else running MAXIMUM of the dot,
+      // negated at the end (-dot is the surrogate: same order, same ties)
+      float best[64];
+      int best_g[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        best[i] = L2 ? CUDART_INF_F : -CUDART_INF_F;
+        best_g[i] = 0;
+      }
+      for (int g = 0; g < n_groups; ++g) {
+        const int held =
+            group_start(acc, x_addr, wg_off, ring_addr, &ctrl->ring, cur, walk, lane);
+        group_finish(acc, &ctrl->ring, held, lane);
+        if (L2) {
+          const float* ws = ctrl->w[slot];  // arrived with the group's last chunk
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float2 wv = *reinterpret_cast<const float2*>(ws + 8 * j + 2 * tig);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h;
+              const float t0 = fmaf(-2.0f, acc[i], wv.x);  // w - 2 dot, rounded once
+              const float t1 = fmaf(-2.0f, acc[i + 1], wv.y);
+              if (t0 < best[i]) {
+                best[i] = t0;
+                best_g[i] = g;
+              }
+              if (t1 < best[i + 1]) {
+                best[i + 1] = t1;
+                best_g[i + 1] = g;
+              }
+            }
+          }
+          if (++slot == norm_slots) slot = 0;
+        } else {
+          const int col0 = base + g * LANES;
+          if (col0 + LANES > c) {  // the corpus ends inside this group
+#pragma unroll
+            for (int i = 0; i < 64; ++i)
+              if (col0 + 8 * (i / 4) + 2 * tig + i % 2 >= c) acc[i] = -CUDART_INF_F;
+          }
+#pragma unroll
+          for (int i = 0; i < 64; ++i)
+            if (acc[i] > best[i]) {
+              best[i] = acc[i];
+              best_g[i] = g;
+            }
+        }
+      }
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + lrow + 8 * h;
+        if (row >= q) continue;
+        const float xx = (!RAW && L2) ? x2[row] : 0.0f;
+        const size_t o = (size_t)row * n_units * LANES + (size_t)unit * LANES + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int i = 4 * j + 2 * h;
+          float t0 = L2 ? best[i] : -best[i];
+          float t1 = L2 ? best[i + 1] : -best[i + 1];
+          if (!RAW) {
+            t0 = finish_bin(t0, xx, metric);
+            t1 = finish_bin(t1, xx, metric);
+          }
+          const int col = base + 8 * j + 2 * tig;
+          // an even column of a row whose width is a multiple of 128: 8-byte aligned
+          *reinterpret_cast<float2*>(outd + o + 8 * j) = make_float2(t0, t1);
+          *reinterpret_cast<int2*>(outi + o + 8 * j) =
+              make_int2(col + best_g[i] * LANES, col + 1 + best_g[i + 1] * LANES);
+        }
+      }
+    }
+  }
 }
 
+// x [Q, D], y [C, D] bf16 with D a multiple of 8, both 16-byte aligned; else
+// an error code.  scratch: room for C rounded up to 128, plus Q,
+// floats, written and read for the L2 metrics only.
 template <bool RAW>
-int launch(const void* x, const void* y, float* outd, int* outi, int q, int c, int d, int span,
-           int n_units, int metric, void* stream) {
-  const int n_q_tiles = (q + BM - 1) / BM;
-  const unsigned blocks = (unsigned)n_q_tiles * n_units;
-  // 16-byte loads need rows that start on 16-byte boundaries
-  const int vec = d % 8 == 0 && reinterpret_cast<size_t>(x) % 16 == 0 &&
-                  reinterpret_cast<size_t>(y) % 16 == 0;
+int launch(const void* x, const void* y, float* outd, int* outi, float* scratch, int q, int c,
+           int d, int span, int n_units, int metric, void* stream) {
+  const Walk walk = plan_walk(d, sizeof(Ctrl));
+  CUtensorMap map_x, map_y;
+  int err = encode_map(&map_x, x, q, d);
+  // an empty corpus (folded scan: every slot is padding) is never loaded
+  if (err == 0) err = encode_map(&map_y, c > 0 ? y : x, c > 0 ? c : 1, d);
+  if (err != 0) return err;
+  const int n_q_tiles = (q + TILE_ROWS - 1) / TILE_ROWS;
+  int units_per_block = 1;
+  err = per_block(n_q_tiles, n_units, &units_per_block);
+  if (err != 0) return err;
+  const unsigned blocks = (unsigned)n_q_tiles * ((n_units + units_per_block - 1) / units_per_block);
+  const int smem = smem_bytes(walk, sizeof(Ctrl));
   const auto kernel = is_l2(metric) ? scan_kernel<RAW, true> : scan_kernel<RAW, false>;
-  kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y), outd, outi, q,
-      c, d, span, n_q_tiles, n_units * LANES, metric, vec);
+  err = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int padded_c = (c + LANES - 1) / LANES * LANES;
+  if (is_l2(metric)) {
+    // the norms, once per launch: one pass over the operands as stored
+    const auto norm_blocks = [](long long rows) {
+      return (unsigned)((rows * NORM_LANES + 255) / 256);
+    };
+    if (c > 0)
+      row_sq_norms<<<norm_blocks(padded_c), 256, 0, s>>>(static_cast<const uint4*>(y), c, d,
+                                                          padded_c, scratch);
+    if (!RAW)
+      row_sq_norms<<<norm_blocks(q), 256, 0, s>>>(static_cast<const uint4*>(x), q, d, q,
+                                                   scratch + padded_c);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  kernel<<<blocks, THREADS, smem, s>>>(map_x, map_y, scratch, scratch + padded_c, outd, outi, q, c,
+                                       span, n_q_tiles, n_units, units_per_block, metric, walk);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace mma
+}  // namespace wg
 
 }  // namespace
 
@@ -558,10 +570,13 @@ extern "C" int binned_scan_f32(const void* x, const void* y, float* outd, int* o
                              stream);
 }
 
-extern "C" int binned_scan_bf16(const void* x, const void* y, float* outd, int* outi, int q, int c,
-                                int d, int tile_c, int metric, void* stream) {
-  return mma::launch<false>(x, y, outd, outi, q, c, d, tile_c, (c + tile_c - 1) / tile_c, metric,
-                            stream);
+// scratch: C rounded up to 128, plus Q, floats for the norms of the L2 metrics
+// (null for the others).
+extern "C" int binned_scan_bf16(const void* x, const void* y, float* outd, int* outi,
+                                float* scratch, int q, int c, int d, int tile_c, int metric,
+                                void* stream) {
+  return wg::launch<false>(x, y, outd, outi, scratch, q, c, d, tile_c, (c + tile_c - 1) / tile_c,
+                           metric, stream);
 }
 
 // outt / outi: [Q, n_slots * 128]; outt holds surrogate minima (no epilogue).
@@ -572,8 +587,9 @@ extern "C" int folded_scan_f32(const void* x, const void* y, float* outt, int* o
   return simt::launch<true>(x, y, outt, outi, q, c, d, n_jj * tile_c, n_slots, metric, stream);
 }
 
-extern "C" int folded_scan_bf16(const void* x, const void* y, float* outt, int* outi, int q, int c,
-                                int d, int tile_c, int n_slots, int n_jj, int metric,
-                                void* stream) {
-  return mma::launch<true>(x, y, outt, outi, q, c, d, n_jj * tile_c, n_slots, metric, stream);
+extern "C" int folded_scan_bf16(const void* x, const void* y, float* outt, int* outi,
+                                float* scratch, int q, int c, int d, int tile_c, int n_slots,
+                                int n_jj, int metric, void* stream) {
+  return wg::launch<true>(x, y, outt, outi, scratch, q, c, d, n_jj * tile_c, n_slots, metric,
+                          stream);
 }

@@ -23,6 +23,8 @@ SOURCES = (
     _PKG / "csrc" / "binned_scan.cu",
     _PKG / "csrc" / "row_gather.cu",
 )
+#: headers the sources include; part of the library's hash
+HEADERS = (_PKG / "csrc" / "bf16_tile.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,7 +50,7 @@ def _nvcc() -> Optional[str]:
 def _build() -> Path:
     global build_log
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib_path = BUILD_DIR / f"libhnsw_kernels-{digest.hexdigest()[:16]}.so"
@@ -77,7 +79,9 @@ def _build() -> Path:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
     tmp = BUILD_DIR / f"{stem}.tmp"
     link = subprocess.run(
-        [nvcc, "-shared", "-o", str(tmp), *map(str, objects)], capture_output=True, text=True
+        # -ldl: the tensor maps reach libcuda's encoder through dlopen
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objects), "-ldl"],
+        capture_output=True, text=True,
     )
     build_log += link.stdout + link.stderr
     if link.returncode != 0:
@@ -102,16 +106,23 @@ def load() -> ctypes.CDLL:
         ]
         fn.restype = ctypes.c_int
         ptr, num = ctypes.c_void_p, ctypes.c_int
-        for name in ("binned_scan_f32", "binned_scan_bf16"):
-            fn = getattr(lib, name)
-            # x, y, outd, outi; q, c, d, tile_c, metric; stream
-            fn.argtypes = [ptr] * 4 + [num] * 5 + [ptr]
-            fn.restype = ctypes.c_int
-        for name in ("folded_scan_f32", "folded_scan_bf16"):
-            fn = getattr(lib, name)
-            # x, y, outt, outi; q, c, d, tile_c, n_slots, n_jj, metric; stream
-            fn.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
-            fn.restype = ctypes.c_int
+        fn = lib.pairwise_distance_bf16
+        # x, y (bf16), xn, yn (f32 norms), out; q, c, d, metric; stream
+        fn.argtypes = [ptr] * 5 + [num] * 4 + [ptr]
+        fn.restype = ctypes.c_int
+        fn = lib.bf16_operand_f32
+        # m (f32), rows (bf16), norms (f32 or null); n (64-bit), d, d_pad; stream
+        fn.argtypes = [ptr] * 3 + [ctypes.c_longlong, num, num, ptr]
+        fn.restype = ctypes.c_int
+        # x, y, outd, outi[, scratch for the norms: bf16 only]; q, c, d, tile_c,
+        # metric; stream
+        lib.binned_scan_f32.argtypes = [ptr] * 4 + [num] * 5 + [ptr]
+        lib.binned_scan_bf16.argtypes = [ptr] * 5 + [num] * 5 + [ptr]
+        # x, y, outt, outi[, scratch]; q, c, d, tile_c, n_slots, n_jj, metric; stream
+        lib.folded_scan_f32.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
+        lib.folded_scan_bf16.argtypes = [ptr] * 5 + [num] * 7 + [ptr]
+        for name in ("binned_scan_f32", "binned_scan_bf16", "folded_scan_f32", "folded_scan_bf16"):
+            getattr(lib, name).restype = ctypes.c_int
         fn = lib.row_gather
         # table, idx, out; rows, table_rows, row_bytes (64-bit: rows x row_bytes
         # passes 2^31 when a hop slab is built); stream

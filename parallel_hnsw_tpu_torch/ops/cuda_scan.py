@@ -5,7 +5,8 @@ plain versions and dispatches (counterpart of
 The Pallas ``_scan_kernel`` and ``_folded_kernel`` become the CUDA C++ kernels
 in ``csrc/binned_scan.cu`` (see its header for design and bounds), launched
 through ctypes: an fp32 FFMA kernel for float32 operands (exact mode) and a
-tensor-core kernel (bf16 ``mma``, f32 accumulate) for bfloat16 operands (fast
+tensor-core kernel (TMA-fed bf16 ``wgmma``, f32 accumulate; rows of any
+width, zero-padded here to a multiple of 8) for bfloat16 operands (fast
 mode), each in a binned and a folded form.  Both reduce the *surrogate*
 ``t[q, c] = w[c] - s * dot(x[q], y[c])`` (``s = 2`` and ``w = |y|^2`` for the
 L2 metrics, else ``s = 1`` and ``w = 0``; ``+inf`` on columns past the corpus)
@@ -32,6 +33,7 @@ import torch
 
 from parallel_hnsw_tpu_torch.constants import MATRIX_BYTE_BUDGET
 from parallel_hnsw_tpu_torch.ops import _native
+from parallel_hnsw_tpu_torch.ops.cuda_distance import bf16_rows, cuda_bf16_operand
 from parallel_hnsw_tpu_torch.ops.distance import Metric, check_fp32_matmul
 
 LANES = 128
@@ -49,7 +51,7 @@ _METRIC_CODE = {
 }
 _L2 = (Metric.EUCLIDEAN, Metric.SQUARED_EUCLIDEAN)
 _MAX_INT = 2**31 - 1
-_BLOCK_ROWS = 64  # query rows per block in csrc/binned_scan.cu
+_BLOCK_ROWS = 64  # fewest query rows per block in csrc/binned_scan.cu (the f32 kernel's)
 
 
 def fold_shape(c: int, tile_c: int, n_slots: int) -> Tuple[int, int]:
@@ -101,17 +103,31 @@ def _first_min(t: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return best.squeeze(dim), first.to(torch.int32)
 
 
-def _cast(x: torch.Tensor, y: torch.Tensor, exact: bool):
+def scan_operand(m: torch.Tensor) -> torch.Tensor:
+    """``m [N, D]`` as the fast-mode scans take it: rounded to bf16 and, on
+    the card, zero-padded to a multiple of 8 columns (zero columns change no
+    dot and no norm): f32 rows by the kernel behind
+    :func:`~parallel_hnsw_tpu_torch.ops.cuda_distance.cuda_bf16_operand`, rows
+    that are bf16 already by its plain version.  A caller that scans blocks of
+    one matrix prepares it once; the wrappers pass a prepared operand through."""
+    if not m.is_cuda:
+        return m.to(torch.bfloat16)
+    return cuda_bf16_operand(m.contiguous())[0] if m.dtype == torch.float32 else bf16_rows(m)
+
+
+def _cast(x: torch.Tensor, y: torch.Tensor, exact: bool, operand=scan_operand):
     if exact:
         if x.dtype != torch.float32 or y.dtype != torch.float32:
             raise TypeError(f"exact scans need float32, got {x.dtype}, {y.dtype}")
         return x, y
-    return x.to(torch.bfloat16), y.to(torch.bfloat16)
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"need [Q, D] and [C, D], got {tuple(x.shape)} and {tuple(y.shape)}")
+    return operand(x), operand(y)
 
 
 def _plain_bins(x, y, metric, tile_c, exact):
     """Surrogate bin minima ``[Q, n_tiles * 128]``, their columns and ``x2``."""
-    x, y = _cast(x, y, exact)
+    x, y = _cast(x, y, exact, operand=lambda m: m.to(torch.bfloat16))  # no kernel in here
     q, c = x.shape[0], y.shape[0]
     n_tiles = -(-c // tile_c)
     _check_tile(c, tile_c, n_tiles)
@@ -198,7 +214,26 @@ def _check_operands(name: str, x: torch.Tensor, y: torch.Tensor) -> str:
         raise ValueError(f"need [Q, D] and [C, D], got {tuple(x.shape)} and {tuple(y.shape)}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError(f"{name} needs contiguous operands")
-    return "f32" if x.dtype == torch.float32 else "bf16"
+    if x.dtype == torch.float32:
+        return "f32"
+    if x.shape[1] % 8 or x.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError(f"{name} needs bf16 rows that start on 16-byte boundaries")
+    return "bf16"
+
+
+def _norm_scratch(suffix: str, x, y, metric: Metric):
+    """The pointer argument that only the bf16 entries take, as a list to
+    splice into the call: scratch for the norms the launch sums for the L2
+    metrics (one f32 per corpus row, rounded up to groups of 128, and per query
+    row), null for the other metrics.  The tensor is returned too, so that it
+    lives until the launch is enqueued."""
+    if suffix != "bf16":
+        return [], None
+    if metric not in _L2:
+        return [None], None
+    rows = -(-y.shape[0] // LANES) * LANES + x.shape[0]
+    scratch = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    return [scratch.data_ptr()], scratch
 
 
 def _check_grid(q: int, units: int) -> None:
@@ -236,8 +271,9 @@ def cuda_binned_scan(
     lib = _native.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        extra, _scratch = _norm_scratch(suffix, x, y, metric)
         err = getattr(lib, f"binned_scan_{suffix}")(
-            x.data_ptr(), y.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            x.data_ptr(), y.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), *extra,
             q, c, d, tile_c, _METRIC_CODE[metric], stream,
         )
     if err != 0:
@@ -280,8 +316,9 @@ def cuda_folded_scan(
     lib = _native.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        extra, _scratch = _norm_scratch(suffix, x, y, metric)
         err = getattr(lib, f"folded_scan_{suffix}")(
-            x.data_ptr(), y.data_ptr(), out_t.data_ptr(), out_i.data_ptr(),
+            x.data_ptr(), y.data_ptr(), out_t.data_ptr(), out_i.data_ptr(), *extra,
             q, c, d, tile_c, n_slots, n_jj, _METRIC_CODE[metric], stream,
         )
     if err != 0:

@@ -2,7 +2,9 @@
 
 * :func:`pairwise_distance` — ``[Q, D] x [C, D] -> [Q, C]``: one fp32 matmul
   plus the metric epilogue.  It is the plain version of the hand-written
-  kernel in :mod:`parallel_hnsw_tpu_torch.ops.cuda_distance`.
+  kernel in :mod:`parallel_hnsw_tpu_torch.ops.cuda_distance` in exact mode.
+* :func:`pairwise_distance_bf16_dots` — the plain version of that kernel's
+  fast mode: dots of the operands rounded to bf16, everything else f32.
 * :func:`batched_distance` — ``[..., D] x [..., C, D] -> [..., C]`` per-query
   gathered candidate blocks (the beam-search hop).
 * :func:`distance_one` — ``[..., D] x [..., D] -> [...]`` paired distances.
@@ -52,16 +54,11 @@ def check_fp32_matmul(x: torch.Tensor) -> None:
         )
 
 
-def pairwise_distance(
-    x: torch.Tensor, y: torch.Tensor, metric: Metric, exact: bool = True
+def _finish_pairwise(
+    dots: torch.Tensor, x: torch.Tensor, y: torch.Tensor, metric: Metric
 ) -> torch.Tensor:
-    """``[Q, D] x [C, D] -> [Q, C]`` distances; one fp32 matmul.
-
-    ``exact`` is accepted for signature parity with the kernel's wrapper; both
-    values compute in fp32 here."""
-    metric = Metric(metric)
-    check_fp32_matmul(x)
-    dots = torch.matmul(x, y.T)
+    """The metric's epilogue on ``dots [Q, C]``; the L2 family's norms are
+    summed from ``x`` and ``y`` as given."""
     if _is_dot_based(metric):
         return _finish_dot(dots, metric)
     # euclidean family: ||x||^2 + ||y||^2 - 2 x.y
@@ -71,6 +68,29 @@ def pairwise_distance(
     if metric is Metric.SQUARED_EUCLIDEAN:
         return sq
     return torch.sqrt(sq)
+
+
+def pairwise_distance(
+    x: torch.Tensor, y: torch.Tensor, metric: Metric, exact: bool = True
+) -> torch.Tensor:
+    """``[Q, D] x [C, D] -> [Q, C]`` distances; one fp32 matmul.
+
+    ``exact`` is accepted for signature parity with the kernel's wrapper; both
+    values compute in fp32 here (as the JAX package does on a CPU)."""
+    metric = Metric(metric)
+    check_fp32_matmul(x)
+    return _finish_pairwise(torch.matmul(x, y.T), x, y, metric)
+
+
+def pairwise_distance_bf16_dots(x: torch.Tensor, y: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """``[Q, D] x [C, D] -> [Q, C]`` distances in the kernel's fast mode: the
+    dots of the operands rounded to bf16, accumulated in f32 (one f32 matmul
+    of the widened values: products of bf16 values are exact in f32); the L2
+    family's norms from the unrounded f32 operands; the same epilogue."""
+    metric = Metric(metric)
+    check_fp32_matmul(x)
+    dots = torch.matmul(x.to(torch.bfloat16).float(), y.to(torch.bfloat16).float().T)
+    return _finish_pairwise(dots, x, y, metric)
 
 
 def batched_distance(q: torch.Tensor, cands: torch.Tensor, metric: Metric) -> torch.Tensor:

@@ -14,7 +14,7 @@ import torch
 
 from parallel_hnsw_tpu_torch import BuildParams, DenseSource, Hnsw, Metric, analysis
 from parallel_hnsw_tpu_torch.ops import cuda_distance, cuda_gather, cuda_scan
-from parallel_hnsw_tpu_torch.ops.distance import pairwise_distance
+from parallel_hnsw_tpu_torch.ops.distance import pairwise_distance, pairwise_distance_bf16_dots
 from parallel_hnsw_tpu_torch.search import search as graph_search
 
 pytestmark = pytest.mark.cuda
@@ -24,6 +24,14 @@ pytestmark = pytest.mark.cuda
 # fp32 summation orders differ by a few ulps (1 ulp = 1.5e-5 there), so they
 # also get a relative bound of ~8 ulps.
 SHAPES = [(70, 130, 32, 0), (1, 3, 7, 0), (64, 128, 16, 1e-6), (129, 67, 100, 1e-6), (300, 1000, 5, 1e-6)]
+# Q and C one below, at and above the kernels' 128-row tiles and twice that; D
+# across the 8-value partials, the 32- and 64-wide chunks and the 16-byte rows
+EDGE_ROWS = [(127, 255), (128, 256), (129, 257), (255, 127), (256, 128), (257, 129)]
+EDGE_DIMS = [7, 8, 100, 104, 128, 136]
+# The fast mode against ITS plain version (the same bf16-rounded operands, f32
+# sums): they differ in the order, and in the tensor cores' rounding, of f32
+# sums of exact products -- a handful of ulps of sums that reach ~300 here.
+FAST_ATOL, FAST_RTOL = 1e-4, 2e-6
 
 
 @pytest.fixture
@@ -39,18 +47,110 @@ def _pair(q, c, d, device, seed=3):
             torch.from_numpy(rng.normal(size=(c, d)).astype(np.float32)).to(device))
 
 
+def _assert_both_modes(x, y, metric, rtol):
+    """``exact=True`` against ``pairwise_distance``, ``exact=False`` against
+    the bf16-dots plain version; one launch counted per mode."""
+    before = dict(cuda_distance.LAUNCHES)
+    got = cuda_distance.best_pairwise_distance(x, y, metric, exact=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pairwise_distance(x, y, metric), atol=2e-5, rtol=rtol)
+    got = cuda_distance.best_pairwise_distance(x, y, metric, exact=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pairwise_distance_bf16_dots(x, y, metric),
+                               atol=FAST_ATOL, rtol=FAST_RTOL)
+    assert cuda_distance.LAUNCHES["exact"] == before["exact"] + 1
+    assert cuda_distance.LAUNCHES["fast"] == before["fast"] + 1
+
+
 @pytest.mark.parametrize("metric", list(Metric), ids=lambda m: m.value)
 def test_kernel_matches_plain(device, metric):
     for q, c, d, rtol in SHAPES:
-        x, y = _pair(q, c, d, device)
-        want = pairwise_distance(x, y, metric)
+        _assert_both_modes(*_pair(q, c, d, device), metric, rtol)
+
+
+@pytest.mark.parametrize("metric", list(Metric), ids=lambda m: m.value)
+@pytest.mark.parametrize("d", EDGE_DIMS)
+def test_kernel_matches_plain_across_tile_edges(device, metric, d):
+    for q, c in EDGE_ROWS:
+        _assert_both_modes(*_pair(q, c, d, device, seed=q + d), metric, 2e-6)
+
+
+def test_kernel_takes_prepared_operands_and_many_row_tiles(device):
+    """Operands prepared once and cut per block give the unprepared call's
+    result; and more row tiles than a grid dimension holds (65,535)."""
+    x, y = _pair(300, 1000, 100, device)
+    for metric in (Metric.EUCLIDEAN, Metric.NORMALIZED_COSINE):
+        xo = cuda_distance.prepare_operand(x, metric, exact=False)
+        yo = cuda_distance.prepare_operand(y, metric, exact=False)
+        assert xo.rows.shape == (300, 104) and xo.rows.dtype == torch.bfloat16
+        assert (xo.sq_norms is None) == (metric is Metric.NORMALIZED_COSINE)
+        whole = cuda_distance.cuda_pairwise_distance(x, y, metric, exact=False)
         before = dict(cuda_distance.LAUNCHES)
-        for exact in (True, False):
-            got = cuda_distance.best_pairwise_distance(x, y, metric, exact=exact)
+        part = cuda_distance.best_pairwise_distance(xo, yo.narrow(256, 700), metric, exact=False)
+        assert torch.equal(part, whole[:, 256:700])
+        # a prepared operand serves the exact mode too (its f32 values)
+        exact = cuda_distance.best_pairwise_distance(xo, yo.narrow(256, 700), metric, exact=True)
+        assert torch.equal(exact, cuda_distance.cuda_pairwise_distance(x, y[256:700], metric))
+        assert cuda_distance.LAUNCHES == {"exact": before["exact"] + 2, "fast": before["fast"] + 1,
+                                          "operand": before["operand"]}
+    no_norms = cuda_distance.prepare_operand(y, Metric.DOT, exact=False)
+    with pytest.raises(ValueError):
+        cuda_distance.cuda_pairwise_distance(x, no_norms, Metric.EUCLIDEAN, exact=False)
+    q = 65_536 * 128 + 5
+    x, y = _pair(q, 3, 8, device)
+    for exact, plain, atol, rtol in ((True, pairwise_distance, 2e-5, 1e-6),
+                                     (False, pairwise_distance_bf16_dots, FAST_ATOL, FAST_RTOL)):
+        got = cuda_distance.cuda_pairwise_distance(x, y, Metric.SQUARED_EUCLIDEAN, exact=exact)
+        torch.cuda.synchronize()
+        for rows in (slice(0, 1000), slice(q - 1000, q)):
+            torch.testing.assert_close(got[rows], plain(x[rows], y, Metric.SQUARED_EUCLIDEAN),
+                                       atol=atol, rtol=rtol)
+
+
+# rows too wide for the bf16 kernels' query tile to stay in shared memory
+# (it streams through the ring instead): just past the switch, the usual
+# embedding widths, and a width that is no multiple of the 64-wide chunks
+WIDE_DIMS = [640, 648, 704, 712, 768, 1000, 1536]
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_fast_kernel_takes_wide_rows(device, d):
+    """Unit vectors, so the f32 sums of both sides stay within a few ulps of
+    values <= 4 whatever D is."""
+    x, y = _unit_pair(257, 1281, d, device, seed=d)
+    for metric in Metric:
+        got = cuda_distance.best_pairwise_distance(x, y, metric, exact=False)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, pairwise_distance_bf16_dots(x, y, metric),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [7, 8, 100, 104, 128, 648])
+def test_operand_kernel_matches_plain(device, d):
+    """The bf16 rows bit for bit (round to nearest even, zero columns up to a
+    multiple of 8); the norms of the unrounded rows within 4 f32 ulps (the
+    kernel sums in fp64, ``torch.sum`` in f32)."""
+    for n in (1, 31, 4099):
+        m = _pair(n, 1, d, device, seed=n + d)[0] * 3.0
+        # a 16-byte aligned base, then one that is only 4-byte aligned
+        for source in (m, m.reshape(-1)[1 : 1 + (n - 1) * d].view(n - 1, d)):
+            if source.shape[0] == 0:
+                continue
+            before = cuda_distance.LAUNCHES["operand"]
+            rows, norms = cuda_distance.cuda_bf16_operand(source, with_norms=True)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, atol=2e-5, rtol=rtol)
-        assert cuda_distance.LAUNCHES["exact"] == before["exact"] + 1
-        assert cuda_distance.LAUNCHES["fast"] == before["fast"] + 1
+            assert cuda_distance.LAUNCHES["operand"] == before + 1
+            want_rows, want_norms = cuda_distance.plain_bf16_operand(source, with_norms=True)
+            assert rows.dtype == torch.bfloat16 and rows.shape == (source.shape[0], d + -d % 8)
+            assert rows.data_ptr() % 16 == 0 and torch.equal(rows, want_rows)
+            torch.testing.assert_close(norms, want_norms, atol=0, rtol=5e-7)
+            assert cuda_distance.cuda_bf16_operand(source)[1] is None
+            assert torch.equal(cuda_distance.cuda_bf16_operand(source)[0], want_rows)
+    with pytest.raises(TypeError):
+        cuda_distance.cuda_bf16_operand(m.double())
+    with pytest.raises(ValueError):
+        cuda_distance.cuda_bf16_operand(m.T)
+    assert cuda_distance.cuda_bf16_operand(m[:0], with_norms=True)[0].shape == (0, d + -d % 8)
 
 
 def test_wrapper_rejects_bad_operands(device):
@@ -98,6 +198,10 @@ def test_build_and_search_on_device(device):
 # (Q, C, D, tile_c, n_slots): the JAX kernel tests' shapes, then ragged ones
 SCAN_SHAPES = [(16, 300, 8, 256, 4), (16, 1500, 8, 256, 4), (24, 3000, 16, 256, 8),
                (70, 1000, 100, 128, 3), (129, 5000, 33, 512, 32)]
+# Q and C around the scans' 128-row query tile and 128-row corpus groups, D
+# across the 16-byte rows and the 64-wide chunks of the bf16 kernel
+SCAN_EDGE_SHAPES = [(127, 255, 7, 128, 2), (128, 256, 8, 128, 2), (129, 257, 100, 256, 2),
+                    (255, 127, 104, 128, 1), (256, 1280, 128, 256, 3), (257, 1281, 136, 256, 3)]
 
 
 def _unit_pair(q, c, d, device, seed=3):
@@ -127,10 +231,11 @@ def _assert_bins_agree(got, want, x, y, metric, exact):
                                    atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("shapes", [SCAN_SHAPES, SCAN_EDGE_SHAPES], ids=["jax_and_ragged", "tile_edges"])
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
 @pytest.mark.parametrize("metric", list(Metric), ids=lambda m: m.value)
-def test_scan_kernels_match_plain(device, metric, exact):
-    for q, c, d, tile_c, n_slots in SCAN_SHAPES:
+def test_scan_kernels_match_plain(device, metric, exact, shapes):
+    for q, c, d, tile_c, n_slots in shapes:
         x, y = _unit_pair(q, c, d, device)
         before = dict(cuda_scan.LAUNCHES)
         got = cuda_scan.binned_scan(x, y, metric, tile_c=tile_c, exact=exact)
@@ -177,6 +282,20 @@ def test_scan_wrappers_reject_bad_operands(device):
     with pytest.raises(ValueError):
         cuda_scan.cuda_binned_scan(x, y.cpu(), Metric.DOT, tile_c=256, exact=True)
     assert cuda_scan.cuda_binned_scan(x[:0], y, Metric.DOT, tile_c=256)[0].shape == (0, 256)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_scan_kernels_take_wide_rows(device, d):
+    x, y = _unit_pair(257, 3000, d, device, seed=d)
+    for metric in (Metric.NORMALIZED_COSINE, Metric.EUCLIDEAN, Metric.DOT):
+        got = cuda_scan.binned_scan(x, y, metric, tile_c=512, exact=False)
+        torch.cuda.synchronize()
+        want = cuda_scan.plain_binned_scan(x, y, metric, tile_c=512, exact=False)
+        _assert_bins_agree(got, want, x, y, metric, exact=False)
+        got = cuda_scan.folded_scan(x, y, metric, tile_c=256, n_slots=5, exact=False)
+        torch.cuda.synchronize()
+        want = cuda_scan.plain_folded_scan(x, y, metric, tile_c=256, n_slots=5, exact=False)
+        _assert_bins_agree(got, want, x, y, metric, exact=False)
 
 
 @pytest.mark.parametrize("mode", ["exhaustive", "binned", "folded"])
