@@ -35,23 +35,34 @@ Phases, each printed as it ends:
    bit for bit: f32, bf16 and int32 rows of the widths the hop gathers, slab
    rows, 1 to 100,000 indices with repeats and both ends of the table; then
    the median time of kernel, plain version and ``torch.index_select`` at the
-   hop's shapes (1,572,864 rows of a 100,000 x 128 and of a 200,000 x 100 f32
-   table) beside the bound by bytes;
+   shape the hop gathered feature rows at until the fused kernel (1,572,864
+   rows of a 100,000 x 128 and of a 200,000 x 100 f32 table) beside the bound
+   by bytes, and at the hop's neighbor rows (32,768 int32 rows of 48); then
+   the hop's gather-and-distance kernel against its plain version (row gather
+   + ``batched_distance``) for every metric, f32 and bf16 rows, source rows
+   and slabs of 48, within 2e-5, and at the hop's shapes (8192 queries x 192
+   candidates over 200,000 x 100 and 100,000 x 128 f32 and 200,000 x 100 bf16
+   routing rows): its error, the median time of the kernel, of the
+   row-gather kernel + ``batched_distance`` (the hop before it), of the
+   plain version and of ``torch.index_select`` + ``torch.baddbmm``, beside
+   its bounds with the table read once and with every gathered row read;
 5. ``Hnsw.generate`` over ``--count`` random 100-d unit vectors (numpy seed
    42, normalized cosine, default ``BuildParams``, seed 0): build time, layer
    sizes, stochastic recall, the trace summary and the kernel launch counts;
 6. ``Hnsw.search`` of 10,000 held-out vectors at the default
    ``SearchParams``: recall@10 against ``Hnsw.search_exact`` and QPS; then
    recall@10 of as many corpus rows as queries (``bench.py``'s measure), and
-   the row-gather launches of one search pass;
+   the gather-and-distance and row-gather launches of one search pass (one
+   of each per hop, plus the entry's row gather per query block);
 7. the other traversals on that index: ``search_instrumented`` and
-   ``search.search(adaptive=True)`` (the plain search's ids; for the
-   adaptive one up to near-ties, as its batches shrink), f32 hop slabs (ids
-   and distances identical), cast-only routing without and with slabs
+   ``search.search(adaptive=True)`` (the plain search's ids and distances,
+   bit for bit, though its batches shrink), f32 hop slabs (ids and distances
+   identical), cast-only routing without and with slabs
    (recall@10 within 0.02 of the unrouted search after the rerank),
    projected routing (``dr=64``), and one plain search pass under
-   ``torch.profiler`` (busy share and device time by kernel) and one
-   fast-tier relink of the bottom layer under it too; then on a
+   ``torch.profiler`` (busy share, device time by kernel, and of the hop's
+   two gather kernels) and one fast-tier relink of the bottom layer under it
+   too; then on a
    10,000 x 100 index: a build that resumes from its own checkpoint, a
    mutation that drops the slabs, and ``knn(10)``;
 8. persistence: the index goes to a temporary directory and comes back onto
@@ -99,6 +110,7 @@ from parallel_hnsw_tpu_torch.ops.distance import (
     pairwise_distance,
     pairwise_distance_bf16_dots,
 )
+from parallel_hnsw_tpu_torch.search import auto_query_block
 from parallel_hnsw_tpu_torch.search import search as graph_search
 from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
 from parallel_hnsw_tpu_torch.utils.trace import TRACER, enable_tracing
@@ -157,12 +169,16 @@ PERSIST_QUERIES = 1000
 # JAX gather study's table and from the main path's.
 GATHER_ROWS = 8192 * 4 * 48
 GATHER_TIMED = ((100_000, 128), (200_000, DIM))
+# The hop's gather-and-distance: 8192 queries x (beam 4 x 48 neighbors)
+# candidates; unit vectors, so partial sums stay within [-4, 4] and two f32
+# summation orders differ by a few ulps of 4.
+HOP_QUERIES, HOP_CANDIDATES = 8192, 4 * 48
+GATHER_DISTANCE_ATOL = 2e-5
 # Held-out search QPS of this script's phase 6 on an NVIDIA H100 80GB HBM3 at
 # 700 W while the hop still gathered with torch indexing; printed beside
 # today's so a slow gather kernel is seen.
 SEARCH_QPS_BEFORE_GATHER_KERNEL = 10_932
 ROUTED_RECALL_SLACK = 0.02
-ADAPTIVE_TOP10_FLOOR = 0.99
 SMALL_COUNT = 10_000
 
 
@@ -652,9 +668,117 @@ def check_gather_kernel(device) -> dict:
                        "fancy_index_ms": fancy, **bound}
     study, main_path = (out[k] for k in GATHER_TIMED)
     n, d = GATHER_TIMED[1]
+    # what the hop gathers with it now: the neighbor rows of the expanded nodes
+    m = HOP_CANDIDATES // 4
+    nbr = torch.randint(0, 1 << 30, (n, m), generator=gen, dtype=torch.int32).to(device)
+    idx = torch.randint(0, n, (HOP_QUERIES, 4), generator=gen, dtype=torch.int32).to(device)
+    k1 = _median_ms(lambda: cuda_gather.cuda_row_gather(nbr, idx))
+    p1 = _median_ms(lambda: cuda_gather.plain_row_gather(nbr, idx))
+    k2 = _median_ms(lambda: cuda_gather.cuda_row_gather(nbr, idx))
+    nbr_bound = _bound(0.0, PEAK_FP32_FLOPS, 4.0 * idx.numel() * (1 + 2 * m))
+    assert torch.equal(cuda_gather.cuda_row_gather(nbr, idx), cuda_gather.plain_row_gather(nbr, idx))
+    print(f"row_gather time at the hop's neighbor rows ({idx.numel()} int32 rows of {m} from "
+          f"[{n} x {m}]): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound "
+          f"{nbr_bound['bound_ms']:.4f} ms by {nbr_bound['bound_by']}")
     return {**main_path, "shape": f"R={GATHER_ROWS}, table [{n} x {d}] f32",
             "study_ms": study["ms"], "study_plain_ms": study["plain_ms"],
-            "study_library_ms": study["library_ms"], "study_bound_ms": study["bound_ms"]}
+            "study_library_ms": study["library_ms"], "study_bound_ms": study["bound_ms"],
+            "neighbor_rows_shape": f"R={idx.numel()}, table [{n} x {m}] int32",
+            "neighbor_rows_ms": min(k1, k2), "neighbor_rows_plain_ms": p1,
+            "neighbor_rows_bound_ms": nbr_bound["bound_ms"]}
+
+
+def check_gather_distance_kernel(device) -> dict:
+    """The hop's gather-and-distance kernel against ``plain_gather_distance``
+    (``index_select`` + ``batched_distance``), then its times at the hop's
+    shapes beside the two-step hop it replaces, the two library calls that
+    compute the same, and its bounds."""
+    gen = torch.Generator().manual_seed(6)
+
+    def unit(*shape):
+        return torch.nn.functional.normalize(torch.randn(shape, generator=gen), dim=-1)
+
+    max_err, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (100, 128, 64, 33):
+            for shape, k in (((20_000, d), 191), ((600, 48, d), 4)):  # rows; slabs of 48
+                table = unit(*shape).to(dtype).to(device)
+                queries = unit(1000, d).to(device)
+                idx = torch.randint(0, shape[0], (1000, k), generator=gen, dtype=torch.int32)
+                idx[0, :3] = torch.tensor([0, shape[0] - 1, shape[0] - 1])  # both ends, a repeat
+                idx[1, :2] = torch.tensor([2**31 - 1, -1])  # outside the table: +inf
+                idx[2] = 2**31 - 1  # a query that is done
+                idx = idx.to(device)
+                for metric in Metric:
+                    got = cuda_gather.cuda_gather_distance(queries, table, idx, metric)
+                    if cases == 0:
+                        torch.cuda.synchronize()  # a bad address shows here, at the first launch
+                    want = cuda_gather.plain_gather_distance(queries, table, idx, metric)
+                    assert torch.equal(torch.isinf(got), torch.isinf(want))
+                    fin = torch.isfinite(want)
+                    err = float((got[fin] - want[fin]).abs().max())
+                    assert err <= GATHER_DISTANCE_ATOL, (
+                        f"gather_distance disagrees: {dtype} {shape} {metric.value} {err}")
+                    max_err = max(max_err, err)
+                    cases += 1
+    torch.cuda.synchronize()
+    print(f"gather_distance: {cases} cases (f32 and bf16 rows, D 100/128/64/33, source rows "
+          f"and slabs of 48, every metric, indices outside the table) within "
+          f"{GATHER_DISTANCE_ATOL:.0e} of the plain version: max_abs_err={max_err:.3e}")
+
+    metric = Metric.NORMALIZED_COSINE
+    half = torch.full((), 0.5, device=device)
+    out = {}
+    for n, d, dtype in ((200_000, DIM, torch.float32), (100_000, 128, torch.float32),
+                        (200_000, DIM, torch.bfloat16)):
+        table = unit(n, d).to(dtype).to(device)
+        queries = unit(HOP_QUERIES, d).to(device)
+        idx = torch.randint(0, n, (HOP_QUERIES, HOP_CANDIDATES), generator=gen,
+                            dtype=torch.int32).to(device)
+        fused = lambda: cuda_gather.cuda_gather_distance(queries, table, idx, metric)
+        before = lambda: batched_distance(queries, cuda_gather.cuda_row_gather(table, idx), metric)
+        plain = lambda: cuda_gather.plain_gather_distance(queries, table, idx, metric)
+        # the library's two calls: index_select, then 0.5 - 0.5 * dot in one
+        # baddbmm (the rows widened to f32 first where they are bf16)
+        flat = idx.reshape(-1)
+        library = lambda: torch.baddbmm(
+            half, torch.index_select(table, 0, flat).view(HOP_QUERIES, HOP_CANDIDATES, d).float(),
+            queries.unsqueeze(-1), beta=1.0, alpha=-0.5).squeeze(-1)
+        want = plain()
+        err = max(float((fused() - want).abs().max()), float((library() - want).abs().max()))
+        assert err <= GATHER_DISTANCE_ATOL, f"gather_distance disagrees at the hop's shape: {err}"
+        # before, kernel, kernel, before
+        b1, k1, k2, b2 = (_median_ms(f) for f in (before, fused, fused, before))
+        p_ms = _median_ms(plain)
+        lib_ms = _median_ms(library)
+        rows_read = float(torch.unique(idx).numel())
+        io = 4.0 * (idx.numel() + HOP_QUERIES * d + idx.numel())  # idx, queries, distances
+        row_bytes = d * table.element_size()
+        flops = 2.0 * idx.numel() * d
+        bound = _bound(flops, PEAK_FP32_FLOPS, io + rows_read * row_bytes)
+        every_row = _bound(flops, PEAK_FP32_FLOPS, io + idx.numel() * row_bytes)
+        ms = min(k1, k2)
+        name = f"[{n} x {d}] {str(dtype).replace('torch.', '')}"
+        print(f"gather_distance at the hop ({HOP_QUERIES} x {HOP_CANDIDATES} over {name}, "
+              f"{metric.value}): max_abs_err={err:.3e}; kernel {k1:.4f} / {k2:.4f} ms; "
+              f"row_gather + batched_distance {b1:.4f} / "
+              f"{b2:.4f} ms; plain {p_ms:.4f} ms; torch.index_select + torch.baddbmm {lib_ms:.4f} ms; "
+              f"bound {bound['bound_ms']:.4f} ms with the {int(rows_read)} distinct rows read once, "
+              f"{every_row['bound_ms']:.4f} ms with every gathered row read (by "
+              f"{every_row['bound_by']}); kernel at {bound['bound_ms'] / ms:.1%} / "
+              f"{every_row['bound_ms'] / ms:.1%} of them")
+        out[name] = {"max_abs_err": max(err, max_err), "ms": ms,
+                     "plain_ms": p_ms, "before_ms": min(b1, b2), "library_ms": None,
+                     "two_call_library_ms": lib_ms,
+                     "two_call_library": "torch.index_select + torch.baddbmm", **bound,
+                     "every_row_bound_ms": every_row["bound_ms"]}
+    main_path, study, routing = out.values()
+    names = list(out)
+    return {**main_path, "shape": f"{HOP_QUERIES} x {HOP_CANDIDATES} candidates over {names[0]}",
+            "study_shape": names[1], "study_ms": study["ms"], "study_before_ms": study["before_ms"],
+            "study_bound_ms": study["bound_ms"], "routing_shape": names[2],
+            "routing_ms": routing["ms"], "routing_before_ms": routing["before_ms"],
+            "routing_bound_ms": routing["bound_ms"]}
 
 
 def _timed_s(fn, reps: int = 3):
@@ -770,18 +894,18 @@ def traversal_phase(hnsw: Hnsw, queries: torch.Tensor, gt_ids: torch.Tensor,
           f"last-improvement hop mean {float(improve.mean()):.2f} max {int(improve.max())}")
     assert stats["hops"] > 0 and stats["distance_evaluations"] > 0
 
-    # adaptive: the same traversal on a shrinking batch.  cuBLAS sums a
-    # batched product in an order that depends on the batch size, so a
-    # distance can move by an ulp and a near-tie can flip; the answers are
-    # held to the lockstep search's within ADAPTIVE_TOP10_FLOOR
-    a_ids, _, a_recall = timed("search(adaptive=True)", lambda q: graph_search(
+    # adaptive: the same traversal on a shrinking batch.  The hop's distances
+    # are summed in an order set by D alone (the gather-and-distance kernel),
+    # so the batch a query sits in changes nothing: ids and distances identical
+    a_ids, a_d, a_recall = timed("search(adaptive=True)", lambda q: graph_search(
         hnsw.layers, hnsw.compute_source, hnsw.metric, q,
         hnsw.build_parameters.optimization.search, adaptive=True))
     same_top10 = float((a_ids[:, :10] == ids[:, :10]).all(-1).float().mean())
     print(f"search(adaptive=True): top-10 ids identical to the lockstep search's for "
           f"{same_top10:.5f} of the queries, all {ids.shape[1]} ids for "
-          f"{float((a_ids == ids).all(-1).float().mean()):.5f}")
-    assert same_top10 >= ADAPTIVE_TOP10_FLOOR, (
+          f"{float((a_ids == ids).all(-1).float().mean()):.5f}, distances identical: "
+          f"{bool(torch.equal(a_d, dists))}")
+    assert torch.equal(a_ids, ids) and torch.equal(a_d, dists), (
         f"adaptive search differs from the lockstep search on {1 - same_top10:.4f} of the queries")
     assert abs(a_recall - plain_recall) <= 0.002, "adaptive search moved recall@10"
 
@@ -846,9 +970,14 @@ def _device_profile(label: str, fn, wall_ms=None) -> None:
           f"{sum(n for _, _, n in rows)} kernels, {against}; by kernel:")
     rows.sort(key=lambda r: -r[1])
     # the twelve largest, and the port's own kernels wherever they stand
-    own = ("pairwise_kernel", "operand_kernel", "scan_kernel", "row_sq_norms", "row_gather_kernel")
+    own = ("pairwise_kernel", "operand_kernel", "scan_kernel", "row_sq_norms", "row_gather_kernel",
+           "gather_distance_kernel")
     for key, ms, count in rows[:12] + [r for r in rows[12:] if any(name in r[0] for name in own)]:
         print(f"  {ms:9.2f} ms {count:7d} x  {key[:100]}")
+    for name in ("gather_distance_kernel", "row_gather_kernel"):
+        mine = [(ms, n) for key, ms, n in rows if name in key]
+        print(f"{label}: {name} {sum(ms for ms, _ in mine):.2f} ms of device time in "
+              f"{sum(n for _, n in mine)} launches")
 
 
 def profile_phase(hnsw: Hnsw, queries: torch.Tensor, plain_qps: float) -> None:
@@ -970,8 +1099,9 @@ def main() -> None:
     scans = check_scan_kernels(device, flat_vecs)
     t = _phase("3 scan kernel check", t)
 
-    # 4. row-gather kernel against its plain version
+    # 4. row-gather and gather-and-distance kernels against their plain versions
     gather = check_gather_kernel(device)
+    gather_distance = check_gather_distance_kernel(device)
     t = _phase("4 gather kernel check", t)
 
     # 5. build
@@ -1025,14 +1155,24 @@ def main() -> None:
     operand_launches = cuda_distance.LAUNCHES["operand"]
     print(f"launches in the main path: {cuda_distance.LAUNCHES} {cuda_gather.LAUNCHES} "
           f"(of them in the build: {build_launches}; the rest are the exact scans of this phase)")
-    gather_launches_build_and_search = cuda_gather.LAUNCHES["row_gather"]
-    # the row-gather kernel's count: ONE search pass, zeroed just before it
+    build_and_search = dict(cuda_gather.LAUNCHES)
+    # the gather kernels' counts: ONE search pass, zeroed just before it
     _zero_launches()
     one_ids, _ = hnsw.search(queries)
     torch.cuda.synchronize()
-    gather_launches = cuda_gather.LAUNCHES["row_gather"]
-    print(f"row_gather launches in one search pass of {QUERIES} queries: {gather_launches}")
-    assert torch.equal(one_ids, ids) and gather_launches > 0, "the search did not run the gather kernel"
+    hop_launches = dict(cuda_gather.LAUNCHES)
+    block = auto_query_block(hnsw.compute_source, hnsw.build_parameters.optimization.search,
+                             max(layer.neighborhood_size for layer in hnsw.layers))
+    blocks = -(-QUERIES // block)
+    print(f"launches in one search pass of {QUERIES} queries ({blocks} query blocks): "
+          f"gather_distance {hop_launches['gather_distance']} (the hop's candidate rows and their "
+          f"distances), row_gather {hop_launches['row_gather']} (the hop's neighbor rows, and the "
+          f"entry vector once per block)")
+    assert torch.equal(one_ids, ids), "a second search pass answered differently"
+    # every hop launches each kernel once; the row gather no longer carries feature rows
+    assert hop_launches["gather_distance"] > 0, "the search did not run the gather-and-distance kernel"
+    assert hop_launches["row_gather"] == hop_launches["gather_distance"] + blocks, (
+        "the row gather ran more than the hop's neighbor rows and the entry vector")
     t = _phase("6 search", t)
 
     # 7. the other traversals
@@ -1091,9 +1231,18 @@ def main() -> None:
             "route": "cuda",
             "source": "parallel_hnsw_tpu_torch/csrc/row_gather.cu",
             "replaces": "scripts/gather_kernel_study.py:34",
-            "launches": gather_launches,
-            "launches_build_and_search": gather_launches_build_and_search,
+            "launches": hop_launches["row_gather"],
+            "launches_build_and_search": build_and_search["row_gather"],
             **gather,
+        },
+        {
+            "name": "gather_distance",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/gather_distance.cu",
+            "replaces": "scripts/gather_kernel_study.py:34",
+            "launches": hop_launches["gather_distance"],
+            "launches_build_and_search": build_and_search["gather_distance"],
+            **gather_distance,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

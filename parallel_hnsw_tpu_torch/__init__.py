@@ -9,8 +9,8 @@ top-k; the flat-scan path (``fast_flat_knn``,
 JAX package's directory format).  The kernels are hand-written CUDA for
 Hopper, built with ``nvcc`` at first use: pairwise distances
 (``csrc/pairwise_distance.cu``), the binned and folded distance scans
-(``csrc/binned_scan.cu``) and the row gather under every hop
-(``csrc/row_gather.cu``).  A CUDA tensor always goes through a kernel; a CPU
+(``csrc/binned_scan.cu``), the row gather (``csrc/row_gather.cu``) and the
+hop's gather-and-distance (``csrc/gather_distance.cu``).  A CUDA tensor always goes through a kernel; a CPU
 tensor takes the plain PyTorch version.  Entry points that create tensors
 place them on the card unless the caller names a device.  Imports torch and
 numpy, never jax.

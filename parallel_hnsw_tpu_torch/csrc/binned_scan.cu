@@ -47,11 +47,18 @@
 //
 // Two kernels, by operand type:
 //
-// * exact mode, f32 in (namespace simt): the shared-memory-tiled fp32 FFMA
-//   product (64 x 64 tile, 256 threads, 4 x 4 micro-tile, D walked in chunks
-//   of 16, dots summed as 8-FFMA partials like the plain version's matmul).
-//   A block owns 64 query rows and one half (64) of the 128 classes of a
-//   unit.  No path launches it yet (the flat scan is fast mode only).
+// * exact mode, f32 in (namespace simt): the fp32 FFMA mainloop of
+//   pairwise_distance.cu's exact kernel (128 x 128 tile, 256 threads, 8 x 8
+//   micro-tile, a three-stage ring of 16-byte cp.async, XOR-swizzled
+//   row-major staging, dots summed as 8-FFMA partials like the plain
+//   version's matmul; the L2 norms summed in fp64 from the staged chunks).  A
+//   block owns 128 query rows and all 128 classes of one unit, and runs its
+//   ring flat over the unit's groups.  A thread's 64 running (minimum,
+//   column) pairs live in its own slots of shared memory (128 KB a block):
+//   64 accumulators, 64 partials and 36 fragment registers leave no room for
+//   them in registers, and the fold that reads them is one load and one
+//   compare per pair and group, a few percent of the group's FFMAs.  No
+//   caller in either package passes exact=True yet.
 // * fast mode, bf16 in (namespace wg): the mainloop of bf16_tile.cuh.  A
 //   block of three warpgroups owns 128 query rows, loaded once by TMA and
 //   resident in shared memory for the whole walk, and a range of consecutive
@@ -85,7 +92,8 @@
 // the wgmmas of such a loop and spills), clusters of two blocks sharing each
 // corpus chunk by TMA multicast (so L2 traffic is not the limit).  Untried:
 // the query fragments in registers, and the survivor cut fused behind the
-// fold.
+// fold.  The exact mode runs at half the FFMA peak, like the pairwise kernel
+// whose loop it shares the design of (32.5 ms binned at the main shape).
 //
 // Plain C interface for ctypes: launches on the given stream, allocates
 // nothing, returns cudaGetLastError().
@@ -129,17 +137,6 @@ __device__ __forceinline__ float finish_bin(float t, float xx, int metric) {
   }
 }
 
-// The surrogate of one (query, corpus column) pair folded into a running
-// minimum.  scale is 1 or 2, so the product is exact and w - s * dot rounds once.
-__device__ __forceinline__ void fold(float dot, float wc, float scale, bool real, int col,
-                                     float& best_t, int& best_col) {
-  const float t = real ? __fsub_rn(wc, scale * dot) : CUDART_INF_F;
-  if (t < best_t) {
-    best_t = t;
-    best_col = col;
-  }
-}
-
 // Rows of the unit's span that exist, in groups of LANES.
 __device__ __forceinline__ int groups_in_span(int base, int span, int c) {
   const int end = min(base + span, c);
@@ -151,166 +148,285 @@ __device__ __forceinline__ int groups_in_span(int base, int span, int c) {
 
 namespace simt {
 
-constexpr int BM = 64;    // query rows per block
-constexpr int BN = 64;    // classes per block: one half of LANES
-constexpr int BK = 16;    // D-chunk per shared-memory stage
-constexpr int TM = 4;     // micro-tile rows per thread
-constexpr int TN = 4;     // micro-tile classes per thread
+// The fp32 mainloop of pairwise_distance.cu's exact kernel, with the fold in
+// place of the store: a block owns 128 query rows and all 128 classes of one
+// unit; a thread an 8 x 8 micro-tile (rows ty * 8 + i, classes tx * 4 + j and
+// 64 + tx * 4 + j); operands staged row-major by 16-byte cp.async (4-byte
+// copies for rows that are not 16-byte multiples or unaligned), 32 values of D
+// per row and stage, XOR-swizzled, in a ring of three stages that runs flat
+// over the unit's groups of 128 corpus rows.
+constexpr int BM = 128;   // query rows per block
+constexpr int BK = 32;    // values of D per row and stage: 128 bytes
+constexpr int TM = 8;     // micro-tile rows per thread
+constexpr int TN = 8;     // micro-tile classes per thread: two runs of four, 64 apart
 constexpr int KPART = 8;  // FFMA chain length before a partial joins the running sum
-constexpr int PAD = 4;    // keeps float4 alignment, halves bank conflicts on the stores
-constexpr int HALVES = LANES / BN;
-static_assert((BM / TM) * (BN / TN) == THREADS, "one micro-tile per thread");
+constexpr int STAGES = 3;
+constexpr int ROW_BYTES = BK * 4;
+constexpr int PIECES = ROW_BYTES / 16;  // 16-byte pieces per staged row
+constexpr int TILE_BYTES = BM * ROW_BYTES;
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // the query tile, then the group's corpus rows
+// running (minimum, column) of every (row, class) pair, thread-major
+constexpr int BEST_BYTES = TM * TN * THREADS * 8;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BEST_BYTES + (BM + LANES) * 4;
+static_assert((BM / TM) * (LANES / TN) == THREADS, "one micro-tile per thread");
+static_assert(THREADS == BM + LANES, "one thread sums the norm of each staged row");
+static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may have");
+
+// Byte offset of 16-byte piece `piece` of staged row `row`.
+__device__ __forceinline__ int piece_offset(int row, int piece) {
+  return row * ROW_BYTES + ((piece ^ ((row >> 2) & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Rows [first_row, first_row + 128) x columns [k0, k0 + 32) of m [n_rows, d]
+// into a staged tile; what lies past the matrix is filled with zeros (a copy
+// of zero source bytes).
+template <bool VEC>
+__device__ __forceinline__ void load_tile(uint32_t tile, const float* __restrict__ m,
+                                          int first_row, int n_rows, int d, int k0, int tid) {
+#pragma unroll
+  for (int v = 0; v < BM * PIECES / THREADS; ++v) {
+    const int id = tid + v * THREADS;  // consecutive threads: consecutive pieces of a row
+    const int row = id / PIECES, piece = id % PIECES;
+    const int grow = first_row + row;
+    const int k = k0 + piece * 4;
+    const bool in_row = grow < n_rows;
+    const float* src_row = m + (size_t)(in_row ? grow : 0) * d;
+    const uint32_t dst = tile + piece_offset(row, piece);
+    if (VEC) {  // d % 4 == 0: a piece is whole or absent
+      const bool ok = in_row && k < d;
+      cp_async16(dst, src_row + (ok ? k : 0), ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = in_row && k + e < d;
+        cp_async4(dst + 4 * e, src_row + (ok ? k + e : 0), ok ? 4 : 0);
+      }
+    }
+  }
+}
 
 // RAW: write surrogate minima (folded scan; the wrapper maps them); else
 // apply the metric's epilogue here (binned scan).  L2: the metric is one of
 // the L2 family, so the surrogate needs |y|^2 and the epilogue |x|^2.
-// blockIdx.x = query tile + n_q_tiles * (HALVES * unit + half).
-// Three blocks per SM: capped at 80 registers the kernel spills a few bytes
-// but runs faster on an H100 than at the 117 registers it takes unbounded
-// (two blocks per SM).
-template <bool RAW, bool L2>
-__global__ void __launch_bounds__(THREADS, 3)
+// blockIdx.x = query tile + n_q_tiles * unit.
+template <bool RAW, bool L2, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const float* __restrict__ x, const float* __restrict__ y, float* __restrict__ outd,
             int* __restrict__ outi, int q, int c, int d, int span, int n_q_tiles, int out_width,
             int metric) {
-  __shared__ __align__(16) float xs[BK][BM + PAD];
-  __shared__ __align__(16) float ys[BK][BN + PAD];
-  __shared__ float wsm[BN];   // |y|^2 of the group's rows (L2)
-  __shared__ float x2sm[BM];  // |x|^2 of the block's rows (L2, binned)
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the running pairs stay in shared memory, each thread's own: beside 64
+  // accumulators, 64 partials and 36 fragment registers, 128 more would spill
+  float* best_t = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);  // [TM * TN][THREADS]
+  int* best_col = reinterpret_cast<int*>(best_t + TM * TN * THREADS);
+  float* xn = reinterpret_cast<float*>(best_col + TM * TN * THREADS);  // |x|^2 (L2, binned)
+  float* yn = xn + BM;                                                 // |y|^2 of the group (L2)
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // micro-tile class group
-  const int ty = tid / (BN / TN);  // micro-tile row group
+  const int tx = tid % (LANES / TN);  // class group
+  const int ty = tid / (LANES / TN);  // row group
   const int row0 = static_cast<int>(blockIdx.x % n_q_tiles) * BM;
-  const int rest = blockIdx.x / n_q_tiles;
-  const int lane0 = (rest % HALVES) * BN;
-  const int unit = rest / HALVES;
+  const int unit = static_cast<int>(blockIdx.x / n_q_tiles);
   const int base = unit * span;  // < C rounded up to units: fits an int (the wrapper checks)
   const int n_groups = groups_in_span(base, span, c);
+  const int nk = (d + BK - 1) / BK;
+  const int total = n_groups * nk;  // (group, chunk) pairs, one flat pipeline
   const float scale = L2 ? 2.0f : 1.0f;
-  // loader mapping: consecutive threads read consecutive elements of a row
-  const int lk = tid % BK;
-  const int lr = tid / BK;
-  constexpr int ROW_STEP = THREADS / BK;  // 16 rows per load pass
-
-  float best_t[TM][TN];
-  int best_col[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      best_t[i][j] = CUDART_INF_F;
-      best_col[i][j] = base + lane0 + tx * TN + j;
-    }
-
-  for (int g = 0; g < n_groups; ++g) {
-    // corpus row of this block's first class; at most C rounded up to units
-    const int col0 = base + g * LANES + lane0;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-    // L2: threads 0..BN-1 sum |y|^2 of one staged corpus row each; in the
-    // first group the next BM threads sum |x|^2 of one query row each
-    // (rows and chunks past the matrix are staged as zeros)
-    float norm = 0.0f;
-    const bool sums_x = !RAW && g == 0 && tid >= BN && tid < BN + BM;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      const int k = k0 + lk;
-#pragma unroll
-      for (int r = lr; r < BM; r += ROW_STEP) {
-        const int gx = row0 + r;
-        xs[lk][r] = (gx < q && k < d) ? x[(size_t)gx * d + k] : 0.0f;
-      }
-#pragma unroll
-      for (int r = lr; r < BN; r += ROW_STEP) {
-        const long long gy = (long long)col0 + r;
-        ys[lk][r] = (gy < c && k < d) ? y[(size_t)gy * d + k] : 0.0f;
-      }
-      __syncthreads();
-
-      if (L2) {
-        if (tid < BN) {
-#pragma unroll
-          for (int kk = 0; kk < BK; ++kk) norm = fmaf(ys[kk][tid], ys[kk][tid], norm);
-        } else if (sums_x) {
-#pragma unroll
-          for (int kk = 0; kk < BK; ++kk) norm = fmaf(xs[kk][tid - BN], xs[kk][tid - BN], norm);
-        }
-      }
+  auto cls = [&](int j) { return (j / 4) * (LANES / 2) + tx * 4 + j % 4; };
 
 #pragma unroll
-      for (int k8 = 0; k8 < BK; k8 += KPART) {
-        float part[TM][TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
-#pragma unroll
-        for (int kk = k8; kk < k8 + KPART; ++kk) {
-          const float4 a4 = *reinterpret_cast<const float4*>(&xs[kk][ty * TM]);
-          const float4 b4 = *reinterpret_cast<const float4*>(&ys[kk][tx * TN]);
-          const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-          const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-      }
-      __syncthreads();
-    }
-
-    if (L2) {
-      // the previous group's fold read wsm before the barriers of this
-      // group's chunks
-      if (tid < BN) wsm[tid] = norm;
-      else if (sums_x) x2sm[tid - BN] = norm;
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const long long col = (long long)col0 + tx * TN + j;
-      const bool real = col < c;
-      const float wc = L2 ? wsm[tx * TN + j] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        fold(acc[i][j], wc, scale, real, static_cast<int>(col), best_t[i][j], best_col[i][j]);
-    }
+  for (int e = 0; e < TM * TN; ++e) {
+    best_t[e * THREADS + tid] = CUDART_INF_F;
+    best_col[e * THREADS + tid] = base + cls(e % TN);
   }
 
-  const size_t out_col = (size_t)unit * LANES + lane0 + tx * TN;
+  // the loader's cursor runs STAGES - 1 chunks ahead of the multiplier's
+  int l_n = 0, l_group = 0, l_kc = 0, l_stage = 0;
+  auto load_next = [&]() {
+    if (l_n < total) {
+      const uint32_t stage = smem_addr + l_stage * STAGE_BYTES;
+      load_tile<VEC>(stage, x, row0, q, d, l_kc * BK, tid);
+      load_tile<VEC>(stage + TILE_BYTES, y, base + l_group * LANES, c, d, l_kc * BK, tid);
+      ++l_n;
+      if (++l_kc == nk) {
+        l_kc = 0;
+        ++l_group;
+      }
+      if (++l_stage == STAGES) l_stage = 0;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // an empty group keeps the count
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_next();
+
+  // staged offsets of this thread's operands (without the piece)
+  const int a_base = ty * TM * ROW_BYTES;  // rows ty * TM + i: swizzle (row / 4) % 8
+  auto a_swz = [&](int i) { return ((ty * TM + i) >> 2) & 7; };
+  const int b_base = TILE_BYTES + tx * 4 * ROW_BYTES;  // rows tx * 4 + j % 4 (+ 64): swizzle tx
+  const int b_swz = tx & 7;
+  // norms: threads [0, 128) sum a query row each (the first group, binned
+  // only), [128, 256) a corpus row
+  const int n_row = tid % BM;
+  const int n_base = (tid / BM) * TILE_BYTES + n_row * ROW_BYTES;
+
+  float acc[TM][TN];
+  double norm[4] = {0.0, 0.0, 0.0, 0.0};  // four chains: the fp64 pipe is slow to turn around
+  int g = 0, kc = 0, stage_i = 0;
+  for (int n = 0; n < total; ++n) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();  // chunk n has landed for all; the stage of chunk n - 1 is free
+    load_next();
+    const unsigned char* stage = smem + stage_i * STAGE_BYTES;
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+      norm[0] = norm[1] = norm[2] = norm[3] = 0.0;
+    }
+    const bool sums = L2 && (tid >= BM || (!RAW && g == 0));
+
+    if (sums) {
+      // pieces in an order that keeps a quarter-warp on eight bank groups;
+      // pieces past D are zeros
+#pragma unroll
+      for (int s = 0; s < PIECES; ++s) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(stage + n_base + ((s ^ (n_row & 7)) << 4));
+        norm[0] = fma((double)v.x, (double)v.x, norm[0]);
+        norm[1] = fma((double)v.y, (double)v.y, norm[1]);
+        norm[2] = fma((double)v.z, (double)v.z, norm[2]);
+        norm[3] = fma((double)v.w, (double)v.w, norm[3]);
+      }
+    }
+
+    const int parts = min(BK / KPART, (d - kc * BK + KPART - 1) / KPART);
+    for (int k8 = 0; k8 < parts; ++k8) {
+      float part[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
+#pragma unroll
+      for (int half = 0; half < KPART / 4; ++half) {
+        const int piece = k8 * (KPART / 4) + half;
+        float4 b[TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          b[j] = *reinterpret_cast<const float4*>(
+              stage + b_base + (j / 4) * (LANES / 2) * ROW_BYTES + (j % 4) * ROW_BYTES +
+              ((piece ^ b_swz) << 4));
+        // k ascending per (i, j); consecutive FFMAs are independent (j varies fastest)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              stage + a_base + i * ROW_BYTES + ((piece ^ a_swz(i)) << 4));
+#pragma unroll
+          for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a.x, b[j].x, part[i][j]);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a.y, b[j].y, part[i][j]);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a.z, b[j].z, part[i][j]);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a.w, b[j].w, part[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
+    }
+
+    if (++stage_i == STAGES) stage_i = 0;
+    if (++kc < nk) continue;
+    kc = 0;
+
+    // the group's dots are complete: fold them into the running pairs
+    if (L2) {
+      // the previous group's fold read yn before this group's barriers
+      if (sums) (tid < BM ? xn : yn)[n_row] = (float)((norm[0] + norm[1]) + (norm[2] + norm[3]));
+      __syncthreads();
+    }
+    const int col0 = base + g * LANES;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = col0 + cls(j);  // at most C rounded up to units: fits an int
+      const bool real = col < c;
+      const float wc = L2 ? yn[cls(j)] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        // the surrogate w - s * dot (s is 1 or 2: the product is exact, one
+        // rounding) folded in with a strict <; a store only where it improves
+        const int e = (i * TN + j) * THREADS + tid;
+        const float t = real ? __fsub_rn(wc, scale * acc[i][j]) : CUDART_INF_F;
+        if (t < best_t[e]) {
+          best_t[e] = t;
+          best_col[e] = col;
+        }
+      }
+    }
+    ++g;
+  }
+
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = row0 + ty * TM + i;
     if (row >= q) break;
-    const float xx = (!RAW && L2 && n_groups > 0) ? x2sm[ty * TM + i] : 0.0f;
-    float v[TN];
+    const float xx = (!RAW && L2 && n_groups > 0) ? xn[ty * TM + i] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) v[j] = RAW ? best_t[i][j] : finish_bin(best_t[i][j], xx, metric);
-    const size_t o = (size_t)row * out_width + out_col;  // a multiple of 4: 16-byte aligned
-    *reinterpret_cast<float4*>(outd + o) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<int4*>(outi + o) =
-        make_int4(best_col[i][0], best_col[i][1], best_col[i][2], best_col[i][3]);
+    for (int run = 0; run < 2; ++run) {
+      float v[4];
+      int col[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int e = (i * TN + run * 4 + jj) * THREADS + tid;
+        v[jj] = RAW ? best_t[e] : finish_bin(best_t[e], xx, metric);
+        col[jj] = best_col[e];
+      }
+      // a multiple of 4: 16-byte aligned
+      const size_t o = (size_t)row * out_width + (size_t)unit * LANES + run * (LANES / 2) + tx * 4;
+      *reinterpret_cast<float4*>(outd + o) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<int4*>(outi + o) = make_int4(col[0], col[1], col[2], col[3]);
+    }
   }
+}
+
+template <bool RAW, bool L2>
+int launch_as(bool vec, const float* x, const float* y, float* outd, int* outi, int q, int c,
+              int d, int span, int n_units, int metric, cudaStream_t stream) {
+  const auto kernel = vec ? scan_kernel<RAW, L2, true> : scan_kernel<RAW, L2, false>;
+  const int err = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES));
+  if (err != 0) return err;
+  const int n_q_tiles = (q + BM - 1) / BM;
+  const long long blocks = (long long)n_q_tiles * n_units;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, stream>>>(x, y, outd, outi, q, c, d, span,
+                                                           n_q_tiles, n_units * LANES, metric);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool RAW>
 int launch(const void* x, const void* y, float* outd, int* outi, int q, int c, int d, int span,
            int n_units, int metric, void* stream) {
-  const int n_q_tiles = (q + BM - 1) / BM;
-  const unsigned blocks = (unsigned)n_q_tiles * n_units * HALVES;
-  const auto kernel = is_l2(metric) ? scan_kernel<RAW, true> : scan_kernel<RAW, false>;
-  kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y), outd, outi, q, c, d, span,
-      n_q_tiles, n_units * LANES, metric);
-  return static_cast<int>(cudaGetLastError());
+  const float* xf = static_cast<const float*>(x);
+  const float* yf = static_cast<const float*>(y);
+  // 16-byte copies need rows that start on 16-byte boundaries
+  const bool vec = d % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0 &&
+                   reinterpret_cast<size_t>(y) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_l2(metric) ? launch_as<RAW, true>(vec, xf, yf, outd, outi, q, c, d, span, n_units, metric, s)
+                       : launch_as<RAW, false>(vec, xf, yf, outd, outi, q, c, d, span, n_units, metric, s);
 }
 
 }  // namespace simt

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID, ID_DTYPE
-from parallel_hnsw_tpu_torch.ops.cuda_gather import row_gather
+from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
+from parallel_hnsw_tpu_torch.ops.distance import Metric
 
 
 class Layer(NamedTuple):
@@ -65,6 +66,24 @@ def source_get(source: Source, ids: torch.Tensor) -> torch.Tensor:
     to +inf."""
     safe = torch.clamp(ids, 0, source.vectors.shape[0] - 1).to(ID_DTYPE)
     return row_gather(source.vectors, safe)
+
+
+def source_distance(
+    source: Source, queries: torch.Tensor, ids: torch.Tensor, metric: Metric
+) -> torch.Tensor:
+    """Distances ``[Q, K]`` of ``queries [Q, D]`` to the feature vectors of
+    ``ids [Q, K]`` int32: ``batched_distance(queries, source_get(source,
+    ids))`` where an id is a vector of the source, ``+inf`` where it is not
+    (``EMPTY_ID``).
+
+    The rows of a dense source are one tensor, so the gather and the
+    distances are one kernel on the card
+    (:func:`~parallel_hnsw_tpu_torch.ops.cuda_gather.gather_distance`): the
+    gathered rows never reach device memory.  This is the place where a
+    source whose rows are not one dense tensor (the JAX package's
+    ``MemmapSource`` and ``PqSource``, not ported yet) is to compute
+    ``source_get`` + ``batched_distance`` instead."""
+    return gather_distance(queries, source.vectors, ids, metric)
 
 
 def source_effective_width(source: Source) -> int:

@@ -22,6 +22,7 @@ SOURCES = (
     _PKG / "csrc" / "pairwise_distance.cu",
     _PKG / "csrc" / "binned_scan.cu",
     _PKG / "csrc" / "row_gather.cu",
+    _PKG / "csrc" / "gather_distance.cu",
 )
 #: headers the sources include; part of the library's hash
 HEADERS = (_PKG / "csrc" / "bf16_tile.cuh",)
@@ -127,6 +128,10 @@ def load() -> ctypes.CDLL:
         # table, idx, out; rows, table_rows, row_bytes (64-bit: rows x row_bytes
         # passes 2^31 when a hop slab is built); stream
         fn.argtypes = [ptr] * 3 + [ctypes.c_longlong] * 3 + [ptr]
+        fn.restype = ctypes.c_int
+        fn = lib.gather_distance
+        # queries, table, idx, out; q, n, k, sub, d, elem_bytes, metric; stream
+        fn.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1,14 +1,25 @@
-"""The row-gather kernel for Hopper, its wrapper, plain version and dispatch.
+"""The row-gather kernels for Hopper, their wrappers, plain versions and
+dispatches.
 
-Counterpart of ``scripts/gather_kernel_study.py::dma_gather``: the Pallas
-``_gather_kernel`` (one DMA per row from scalar-prefetched indices) becomes
-the CUDA C++ kernel in ``csrc/row_gather.cu`` (see its header for design and
-bound), launched through ctypes.  It copies rows as bytes, so one kernel
-serves every row gather of the graph hop: f32 feature rows, bf16 routing
-rows, int32 neighbor rows and ``[M, width]`` hop-slab rows.
+Counterparts of ``scripts/gather_kernel_study.py::dma_gather`` (the Pallas
+``_gather_kernel``: one DMA per row from scalar-prefetched indices), launched
+through ctypes:
 
-Indices must be in range on entry, as in the Pallas kernel: the kernel does
-not check them, and the callers clamp (``graph.source_get``, the hop).
+* ``row_gather`` (``csrc/row_gather.cu``) copies rows as bytes, so one kernel
+  serves every gather of whole rows: f32 feature rows, bf16 routing rows,
+  int32 neighbor rows and ``[M, width]`` hop-slab rows.
+* ``gather_distance`` (``csrc/gather_distance.cu``) is that gather redesigned
+  for its main site, the beam-search hop: it gathers the candidate rows of
+  each query into shared memory and writes only their distances to the
+  query, so the ``[Q, K, D]`` block of rows never reaches device memory.  Its
+  summation order depends on the row width alone, so a query's distances do
+  not depend on the batch it sits in.
+
+See each source's header for design and bound.  ``row_gather``'s indices
+must be in range on entry, as in the Pallas kernel: the kernel does not check
+them, and the callers clamp (``graph.source_get``, the hop).  An index of
+``gather_distance`` outside the table (the hop's ``EMPTY_ID``) brings no row
+and gives ``+inf`` distances.
 """
 
 from __future__ import annotations
@@ -18,9 +29,12 @@ import math
 import torch
 
 from parallel_hnsw_tpu_torch.ops import _native
+# the metric codes are the same in every csrc/*.cu
+from parallel_hnsw_tpu_torch.ops.cuda_distance import _MAX_INT, _METRIC_CODE
+from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance
 
-#: kernel launches, counted where the wrapper launches and nowhere else
-LAUNCHES = {"row_gather": 0}
+#: kernel launches, counted where a wrapper launches and nowhere else
+LAUNCHES = {"row_gather": 0, "gather_distance": 0}
 
 
 def _check_table(table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -81,3 +95,86 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type == "cpu":
         return plain_row_gather(table, idx)
     raise ValueError(f"no row-gather path for device {table.device}")
+
+
+def _check_gather_distance(queries: torch.Tensor, table: torch.Tensor, idx: torch.Tensor) -> None:
+    if queries.dim() != 2 or queries.dtype != torch.float32:
+        raise TypeError(f"need float32 queries [Q, D], got {queries.dtype} {tuple(queries.shape)}")
+    if table.dim() not in (2, 3) or table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"need a float32 or bfloat16 table [N, D] or [N, sub, D], got {table.dtype} "
+            f"{tuple(table.shape)}"
+        )
+    if table.shape[-1] != queries.shape[1]:
+        raise ValueError(f"rows of {table.shape[-1]} values against queries of {queries.shape[1]}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"row indices must be int32, got {idx.dtype}")
+    if idx.dim() != 2 or idx.shape[0] != queries.shape[0]:
+        raise ValueError(f"need indices [Q, K] for {queries.shape[0]} queries, got {tuple(idx.shape)}")
+    if not (queries.device == table.device == idx.device):
+        raise ValueError(f"queries on {queries.device}, table on {table.device}, indices on {idx.device}")
+
+
+def plain_gather_distance(
+    queries: torch.Tensor, table: torch.Tensor, idx: torch.Tensor, metric: Metric
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cuda_gather_distance`: the hop as two
+    steps, :func:`plain_row_gather` of the candidate rows, then
+    :func:`~parallel_hnsw_tpu_torch.ops.distance.batched_distance`, with
+    ``+inf`` where the index lies outside the table."""
+    _check_gather_distance(queries, table, idx)
+    q, d = queries.shape
+    inside = (idx >= 0) & (idx < table.shape[0])
+    cands = plain_row_gather(table, torch.where(inside, idx, 0)).reshape(q, -1, d)
+    dist = batched_distance(queries, cands, metric)
+    sub = 1 if table.dim() == 2 else table.shape[1]
+    return torch.where(inside.repeat_interleave(sub, dim=1), dist, float("inf"))
+
+
+def cuda_gather_distance(
+    queries: torch.Tensor, table: torch.Tensor, idx: torch.Tensor, metric: Metric
+) -> torch.Tensor:
+    """``queries [Q, D]`` f32, ``table [N, D]`` or ``[N, sub, D]`` (f32 or bf16),
+    ``idx [Q, K] int32`` -> ``d [Q, K * sub]`` f32 by the CUDA kernel, with
+    ``d[q, k * sub + j]`` the ``metric`` distance of query ``q`` to row ``j``
+    of ``table[idx[q, k]]`` (bf16 rows widened, every product and sum f32),
+    and ``+inf`` where ``idx[q, k]`` lies outside ``[0, N)`` (nothing is read
+    for it).  The table must be contiguous."""
+    metric = Metric(metric)
+    _check_gather_distance(queries, table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"cuda_gather_distance needs CUDA tensors, got {table.device}")
+    if not table.is_contiguous():
+        raise ValueError("cuda_gather_distance needs a contiguous table")
+    q, d = queries.shape
+    k = idx.shape[1]
+    sub = 1 if table.dim() == 2 else table.shape[1]
+    if max(q, table.shape[0], k * sub, d) > _MAX_INT:
+        raise ValueError(f"Q={q}, N={table.shape[0]}, K x sub={k * sub}, D={d} out of the kernel's range")
+    out = torch.empty((q, k * sub), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    queries, idx = queries.contiguous(), idx.contiguous()
+    lib = _native.load()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gather_distance(
+            queries.data_ptr(), table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            q, table.shape[0], k, sub, d, table.element_size(), _METRIC_CODE[metric], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gather_distance kernel launch failed: CUDA error {err}")
+    LAUNCHES["gather_distance"] += 1
+    return out
+
+
+def gather_distance(
+    queries: torch.Tensor, table: torch.Tensor, idx: torch.Tensor, metric: Metric
+) -> torch.Tensor:
+    """Dispatch on the table's device: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor; anything else raises."""
+    if table.device.type == "cuda":
+        return cuda_gather_distance(queries, table, idx, metric)
+    if table.device.type == "cpu":
+        return plain_gather_distance(queries, table, idx, metric)
+    raise ValueError(f"no gather-distance path for device {table.device}")

@@ -51,7 +51,7 @@ _METRIC_CODE = {
 }
 _L2 = (Metric.EUCLIDEAN, Metric.SQUARED_EUCLIDEAN)
 _MAX_INT = 2**31 - 1
-_BLOCK_ROWS = 64  # fewest query rows per block in csrc/binned_scan.cu (the f32 kernel's)
+_BLOCK_ROWS = 128  # query rows per block of both kernels in csrc/binned_scan.cu
 
 
 def fold_shape(c: int, tile_c: int, n_slots: int) -> Tuple[int, int]:
@@ -237,7 +237,7 @@ def _norm_scratch(suffix: str, x, y, metric: Metric):
 
 
 def _check_grid(q: int, units: int) -> None:
-    if -(-q // _BLOCK_ROWS) * units * 2 > _MAX_INT:
+    if -(-q // _BLOCK_ROWS) * units > _MAX_INT:
         raise ValueError(f"grid out of range: Q={q} with {units} corpus tiles or slots")
 
 

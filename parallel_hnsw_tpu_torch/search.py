@@ -7,9 +7,11 @@ a sorted candidate queue; give up after ``probe_depth`` non-improving pops.
 All queries of a block run in lockstep.  Per query the state is a
 fixed-capacity sorted candidate queue with an "expanded" bit per slot; one
 *hop* expands the ``beam_width`` nearest unexpanded candidates, gathers their
-neighbor rows and the neighbors' feature rows (the hand-written row-gather
-kernel on a CUDA source), computes all distances as one batched contraction,
-and merges via masked sort.  The hop loop runs on the host and reads
+neighbor rows (the hand-written row-gather kernel on a CUDA source), computes
+the distances of the neighbors' feature rows to the query in one
+gather-and-distance kernel (the rows are never written out; on the CPU its
+plain version, a gather and one batched contraction), and merges via masked
+sort.  The hop loop runs on the host and reads
 ``done.all()`` after every hop (the JAX package keeps it inside
 ``lax.while_loop``); the instrumentation counters stay on the device.
 """
@@ -25,12 +27,13 @@ from parallel_hnsw_tpu_torch.graph import (
     Layer,
     Source,
     node_to_vec,
+    source_distance,
     source_effective_width,
     source_get,
     vec_to_node,
 )
-from parallel_hnsw_tpu_torch.ops.cuda_gather import row_gather
-from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance, distance_one
+from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
+from parallel_hnsw_tpu_torch.ops.distance import Metric, distance_one
 from parallel_hnsw_tpu_torch.ops.queues import (
     empty_queue,
     merge_queue,
@@ -106,14 +109,14 @@ def _layer_step_fns(
         flat_nodes = rows.reshape(q_count, b * m)
         valid = flat_nodes != EMPTY_ID
 
-        # --- distances to the query (one batched contraction)
+        # --- distances to the query (one gather-and-distance kernel; an
+        # EMPTY_ID index reads nothing and gives +inf)
         if slab is not None:
             # one slab row per expanded node carries all M neighbor features;
-            # invalid slots are masked below via flat_nodes == EMPTY_ID
-            cand_vecs = row_gather(slab, safe_nodes).reshape(q_count, b * m, slab.shape[-1])
+            # its padding slots are masked below via flat_nodes == EMPTY_ID
+            d = gather_distance(queries, slab, torch.where(sel_valid, sel_nodes, EMPTY_ID), metric)
         else:
-            cand_vecs = source_get(source, node_to_vec(layer.nodes, flat_nodes))
-        d = batched_distance(queries, cand_vecs, metric)
+            d = source_distance(source, queries, node_to_vec(layer.nodes, flat_nodes), metric)
         d = torch.where(valid, d, EMPTY_DIST)
         flat_ids = torch.where(valid, flat_nodes, EMPTY_ID)
         evals = evals + valid.sum()
@@ -404,7 +407,9 @@ def auto_query_block(
     source: Source, sp: SearchParams, max_m: int, budget_bytes: int = 2 << 30
 ) -> int:
     """Query-block size bounding the per-hop gathered candidate block
-    ``[Q, beam*M, width]``."""
+    ``[Q, beam*M, width]`` (the JAX package's budget, kept: on the card the
+    fused hop writes only the ``[Q, beam*M]`` distances, on the CPU the plain
+    version gathers the block)."""
     eff = source_effective_width(source)
     qb = budget_bytes // max(1, sp.beam_width * max_m * eff * 4)
     return int(max(64, min(8192, qb)))
@@ -424,7 +429,8 @@ def search(
     """Multi-layer search with host-side query chunking.
 
     ``query_block`` bounds device memory for huge query batches (the gathered
-    candidate block is ``[Q, beam*M, D]``); 0 = auto from a byte budget.
+    candidate block is ``[Q, beam*M, D]`` on the CPU); 0 = auto from a byte
+    budget.
     ``adaptive`` takes the convergence-tail compaction path
     (:func:`search_host`), which, as in the JAX package, does not use slabs;
     the default is the lockstep loop.  ``slabs`` are per-layer hop slabs
