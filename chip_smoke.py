@@ -72,7 +72,30 @@ Phases, each printed as it ends:
    ``oversample = 4``).  On the first 1,048,576 rows ``scan_mode="auto"``
    must pick the binned kernel, on all rows the folded one; for each,
    recall@10 of ``search_exact(fast=True)`` against ``search_exact``, QPS of
-   both, the launch counts of one call, and then the other two modes forced.
+   both, the launch counts of one call, and then the other two modes forced;
+10. product quantization.  First each kernel at the PQ path's shapes against
+   its plain version, timed beside it and the bound: the fast binned scan at
+   the quantize block (262,144 sub-vectors of 16 against 65,535 centroids;
+   a 100,000-row chunk of 4, padded to 8, against 4096), the exact pairwise
+   kernel at D = 16 and at the code graph's relink block of D = 1536, the
+   fast one at D = 1536, the gather-and-distance kernel at D = 1536,
+   reconstruction of uint16 codes (bit for bit against the CPU).
+   10a, the reference's PQ gate (src/pq.rs:956-978) at full scale: 100,000 x
+   1536 unit vectors (numpy seed 3), euclidean, 65,535 shared centroids of 16,
+   ``fast_quantize=True``: binned codes against the exact argmin (>= 0.999),
+   self-query recall@1 of ``search_exact(k=10)`` (>= 0.999) and of the code
+   graph with exact quantization (>= 0.99) on 10,000 rows, the centroid-graph
+   quantizer on 1,000, QPS, build time by span, the launches of the PQ path
+   (the build, one search of each kind).  10b, config4's shapes cut to
+   200,000 rows: a clustered 96-d corpus, normalized cosine, per-subspace
+   k-means codebooks of 4096 x 4: ``search_exact(k=10, oversample=32)``
+   recall@10 against the full-precision scan on 2,048 held-out queries
+   (>= 0.95), the binned scan at that call's block (2,048 x 200,000 x 96)
+   against its plain version, ``adc_scan`` against the decoded codes (1e-4), the code graph
+   plain and routed over bf16 slabs (recall within 0.02).  10c: both indexes
+   through ``io`` and back (1,000 queries identical), and 10,000 codes of the
+   gate searched with ``DENSIFY_BUDGET_BYTES = 0`` against the densified hop
+   (top-1 identical for >= 0.999, distances within 1e-5).
 
 The second-to-last line is a JSON object describing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -97,14 +120,24 @@ from parallel_hnsw_tpu_torch import (
     DenseSource,
     Hnsw,
     Metric,
+    PqBuildParams,
+    PqSource,
+    QuantizedHnsw,
+    brute_force_knn,
     deserialize_hnsw,
+    deserialize_quantized_hnsw,
     fast_flat_knn,
     select_scan_mode,
     serialize_hnsw,
+    serialize_quantized_hnsw,
 )
 from parallel_hnsw_tpu_torch import analysis
+from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
+from parallel_hnsw_tpu_torch.constants import EMPTY_ID
+from parallel_hnsw_tpu_torch.graph import narrow_codes, reconstruct, source_get, widen_codes
 from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_gather, cuda_scan
 from parallel_hnsw_tpu_torch.optimize import link_layer_to_better_neighbors
+from parallel_hnsw_tpu_torch.pq import adc_lut, adc_scan, quantize_binned
 from parallel_hnsw_tpu_torch.ops.distance import (
     batched_distance,
     pairwise_distance,
@@ -1063,6 +1096,511 @@ def persistence_phase(hnsw: Hnsw, queries: torch.Tensor, device) -> None:
           f"{queries.shape[0]} queries identical in ids and distances")
 
 
+# -- phase 10: product quantization -------------------------------------------
+
+# 10a, the reference's PQ gate (src/pq.rs:956-978; scripts/pq_gate.py is the
+# JAX run of it): unit vectors, euclidean, 65,535 shared centroids of 16 values
+# (96 subspaces, uint16 codes), the binned quantize route
+PQ_GATE_COUNT, PQ_GATE_DIM, PQ_GATE_SEED = 100_000, 1536, 3
+PQ_GATE_CENTROIDS, PQ_GATE_DSUB = 65_535, 16
+PQ_AGREE_SUBS = 65_536
+PQ_RECALL_ROWS = 10_000
+PQ_GRAPH_QUANTIZER_ROWS = 1_000
+# floors: the reference's gate is 1.0 for the flat scan (the JAX package
+# reached 1.0000, and 0.9955-0.9966 for the code graph, on a TPU); binned
+# codes against the exact argmin
+PQ_AGREE_FLOOR = 0.999
+PQ_FLAT_RECALL_FLOOR = 0.999
+PQ_GRAPH_RECALL_FLOOR = 0.99
+# 10b, config4's shapes (BENCH_NOTES.md:445-487, scripts/c4_capacity.py):
+# a clustered 96-d corpus, normalized cosine, per-subspace k-means codebooks
+# of 4096 x 4 values; 200,000 rows (10M in config4: the depth is cut, the
+# widths are kept; 200k is where search_exact takes the binned route)
+PQ_C4_COUNT, PQ_C4_DIM, PQ_C4_CENTERS, PQ_C4_NOISE = 200_000, 96, 1024, 0.35
+PQ_C4_CENTROIDS, PQ_C4_DSUB, PQ_C4_QUERIES, PQ_C4_OVERSAMPLE = 4096, 4, 2048, 32
+PQ_C4_RECALL_FLOOR = 0.95  # BASELINE's floor
+PQ_ADC_QUERIES, PQ_ADC_ATOL = 256, 1e-4
+PQ_NON_DENSE_ROWS, PQ_NON_DENSE_QUERIES = 10_000, 2_000
+# the quantize block of quantize_binned, QuantizedHnsw.new's chunk_size and
+# the scans' tile
+PQ_QUANTIZE_BLOCK = 1 << 18
+PQ_CHUNK = 100_000
+PQ_TILE_C = 4096
+# The exact pairwise kernel at D = 1536 on unit rows: partial sums within
+# [0, 4], two fp32 summation orders ~sqrt(1536) ulps of 4 apart (the bound
+# of gather_distance at this width)
+PQ_WIDE_ATOL = 4e-5
+
+
+def clustered_corpus(count: int, dim: int, seed: int, device) -> torch.Tensor:
+    """config4's recipe (scripts/c4_capacity.py:53-67) drawn with numpy: 1024
+    unit centers, each row a center plus 0.35 N(0, 1) noise, normalized."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((PQ_C4_CENTERS, dim)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    which = rng.integers(0, PQ_C4_CENTERS, count)
+    pts = centers[which] + PQ_C4_NOISE * rng.standard_normal((count, dim)).astype(np.float32)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    return torch.from_numpy(pts).to(device)
+
+
+def _launch_counts() -> dict:
+    return {"pairwise_distance": cuda_distance.LAUNCHES["exact"] + cuda_distance.LAUNCHES["fast"],
+            "bf16_operand": cuda_distance.LAUNCHES["operand"],
+            "binned_scan": cuda_scan.LAUNCHES["binned"], "folded_scan": cuda_scan.LAUNCHES["folded"],
+            "row_gather": cuda_gather.LAUNCHES["row_gather"],
+            "gather_distance": cuda_gather.LAUNCHES["gather_distance"]}
+
+
+def _counted(fn):
+    """``(fn(), launches of each kernel in that call)``: the counts set to 0
+    just before the call and read just after."""
+    _zero_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _launch_counts()
+
+
+def _pq_binned_case(label: str, xs: torch.Tensor, ys: torch.Tensor, metric: Metric,
+                    value_metric: Metric) -> dict:
+    """The fast binned scan at one launch shape of the PQ path: the first
+    512 rows and the last 512 rows of the whole launch against the plain
+    version by value in ``value_metric``, the last rows' columns in
+    ``metric``; then the time beside the plain version's and the bound."""
+    scan = lambda a, m=metric: cuda_scan.cuda_binned_scan(a, ys, m, tile_c=PQ_TILE_C, exact=False)
+    plain = lambda a, m=metric: cuda_scan.plain_binned_scan(a, ys, m, tile_c=PQ_TILE_C, exact=False)
+    head, tail, vm = xs[:SCAN_CHECK_ROWS], xs[-SCAN_CHECK_ROWS:], value_metric
+    err = _check_by_value("binned_scan", scan(head, vm), plain(head, vm), head, ys, vm,
+                          f"{vm.value} {label}")
+    full = scan(xs, vm)
+    err = max(err, _check_by_value(
+        "binned_scan", (full[0][-SCAN_CHECK_ROWS:], full[1][-SCAN_CHECK_ROWS:]),
+        plain(tail, vm), tail, ys, vm, f"{vm.value} {label}, last rows of the launch"))
+    del full
+    same = float((scan(tail)[1] == plain(tail)[1]).float().mean())
+    print(f"binned_scan {label} {metric.value}: columns identical to the plain version's for "
+          f"{same:.6f} of the last rows' bins")
+    assert same >= 0.999, f"binned_scan {label} {metric.value} columns differ: {same}"
+    q, (c, d) = xs.shape[0], ys.shape
+    dpad = d + -d % 8
+    bins = -(-c // PQ_TILE_C) * 128
+    k1 = _median_ms(lambda: scan(xs), reps=5)
+    p1 = _median_ms(lambda: plain(xs), reps=3)
+    k2 = _median_ms(lambda: scan(xs), reps=5)
+    bound = _bound(2.0 * q * c * dpad, PEAK_BF16_FLOPS, 2.0 * (q + c) * dpad + 8.0 * q * bins)
+    ms = min(k1, k2)
+    print(f"binned_scan at {label} [{q} x {c} x {d}] (rows padded to {dpad}), {metric.value}: "
+          f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} ms, bound {bound['bound_ms']:.3f} ms by "
+          f"{bound['bound_by']} ({bound['bound_ms'] / ms:.1%}); max_abs_err {err:.3e}")
+    return {"shape": f"{q} x {c} x {d}", "ms": ms, "plain_ms": p1, "max_abs_err": err, **bound}
+
+
+def pq_kernel_checks(device, gate_vecs: torch.Tensor, c4_vecs: torch.Tensor) -> dict:
+    """Each kernel of the PQ path at the shapes the path gives it, against
+    its plain version, then its time beside the plain version's, a library
+    call's where there is one, and the bound."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(11)
+    # centroids as the path makes them: sub-vectors of the corpus
+    gate_subs = gate_vecs.reshape(-1, PQ_GATE_DSUB)
+    cents = gate_subs[torch.randperm(gate_subs.shape[0], generator=gen, device=device)[
+        :PQ_GATE_CENTROIDS]].contiguous()
+    c4_subs = c4_vecs[:PQ_CHUNK, :PQ_C4_DSUB].contiguous()
+    c4_book = c4_subs[torch.randperm(c4_subs.shape[0], generator=gen, device=device)[
+        :PQ_C4_CENTROIDS]].contiguous()
+
+    # binned scan: the quantize block (fast mode) at D = 16 over 65,535
+    # centroids (a partial last tile) and at D = 4 (padded to 8) over 4096, at
+    # 10b's chunk of 100,000 rows.  Bins are held by value in squared
+    # euclidean, whose surrogate and epilogue the euclidean scan shares up to
+    # a final square root: near 0 (a sub-vector that is itself a centroid)
+    # that root turns one ulp of a squared distance into ~3e-5; the euclidean
+    # scan's columns are held too
+    sq = Metric.SQUARED_EUCLIDEAN
+    binned = {
+        "gate": _pq_binned_case("PQ quantize (gate)", gate_subs[:PQ_QUANTIZE_BLOCK].to(torch.bfloat16),
+                                cents.to(torch.bfloat16), Metric.EUCLIDEAN, sq),
+        "c4": _pq_binned_case("PQ quantize (c4)", c4_subs.to(torch.bfloat16),
+                              c4_book.to(torch.bfloat16), sq, sq),
+    }
+    out["binned_scan"] = binned
+
+    # pairwise distance: the exact quantize route's block at D = 16 ([2048 x
+    # 65,535], blocked_topk_pairwise's row block at this width), and the
+    # fast mode at D = 1536 (search_exact below 200k codes: a 4096-query block
+    # against a 65,536-code block)
+    # (held by value in squared euclidean, as the scan above: some of these
+    # sub-vectors are centroids, and the root near 0 would amplify an ulp)
+    x = gate_subs[:2048].contiguous()
+    want = pairwise_distance(x, cents, Metric.SQUARED_EUCLIDEAN)
+    got = cuda_distance.cuda_pairwise_distance(x, cents, Metric.SQUARED_EUCLIDEAN)
+    exact_err = float((got - want).abs().max())
+    assert exact_err <= BLOCK_ATOL, f"pairwise exact at D = 16 disagrees: {exact_err}"
+    kx = lambda: cuda_distance.cuda_pairwise_distance(x, cents, Metric.EUCLIDEAN)
+    k1, p1 = _median_ms(kx), _median_ms(lambda: pairwise_distance(x, cents, Metric.EUCLIDEAN))
+    k2, lib = _median_ms(kx), _median_ms(lambda: torch.cdist(x, cents))
+    q, c, d = 2048, cents.shape[0], PQ_GATE_DSUB
+    exact_bound = _bound(2.0 * q * c * d, PEAK_FP32_FLOPS, 4.0 * (q * d + c * d + q * c))
+    print(f"pairwise_distance exact at the exact quantize block [{q} x {c} x {d}] euclidean: "
+          f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, torch.cdist {lib:.4f} ms, bound "
+          f"{exact_bound['bound_ms']:.4f} ms by {exact_bound['bound_by']}; max_abs_err {exact_err:.3e}")
+    pair = {"exact_shape": f"{q} x {c} x {d}", "exact_ms": min(k1, k2), "exact_plain_ms": p1,
+            "exact_library_ms": lib, "exact_library": "torch.cdist",
+            "exact_bound_ms": exact_bound["bound_ms"], "exact_bound_by": exact_bound["bound_by"],
+            "exact_max_abs_err": exact_err}
+    # exact mode at D = 1536: the code graph (100,000 nodes, within the exact
+    # seed and relink tiers) runs it on the dense copy; this is the relink's
+    # first block [2048 x 65,536], whose diagonal holds the rows themselves,
+    # so values are held in squared euclidean as above
+    x, y = gate_vecs[:2048].contiguous(), gate_vecs[:65_536].contiguous()
+    want = pairwise_distance(x, y, Metric.SQUARED_EUCLIDEAN)
+    got = cuda_distance.cuda_pairwise_distance(x, y, Metric.SQUARED_EUCLIDEAN)
+    wide_err = float((got - want).abs().max())
+    del got, want
+    assert wide_err <= PQ_WIDE_ATOL, f"pairwise exact at D = 1536 disagrees: {wide_err}"
+    # torch.addmm with a broadcast 0.5 is normalized cosine in one cuBLAS call
+    # (as in phase 2), torch.cdist the euclidean distance
+    half = torch.full((), 0.5, device=device)
+    addmm = lambda: torch.addmm(half, x, y.T, beta=1.0, alpha=-0.5)
+    addmm_err = float((addmm() - pairwise_distance(x, y, Metric.NORMALIZED_COSINE)).abs().max())
+    assert addmm_err <= PQ_WIDE_ATOL, f"torch.addmm is not the same function: {addmm_err}"
+    kw = lambda m: (lambda: cuda_distance.cuda_pairwise_distance(x, y, m))
+    k1 = _median_ms(kw(Metric.EUCLIDEAN), reps=5)
+    p1 = _median_ms(lambda: pairwise_distance(x, y, Metric.EUCLIDEAN), reps=5)
+    k2 = _median_ms(kw(Metric.EUCLIDEAN), reps=5)
+    cdist = _median_ms(lambda: torch.cdist(x, y), reps=5)
+    kc = _median_ms(kw(Metric.NORMALIZED_COSINE), reps=5)
+    lib = _median_ms(addmm, reps=5)
+    q, c, d = 2048, 65_536, PQ_GATE_DIM
+    wide_bound = _bound(2.0 * q * c * d, PEAK_FP32_FLOPS, 4.0 * (q * d + c * d + q * c))
+    print(f"pairwise_distance exact at the code graph's relink block [{q} x {c} x {d}]: euclidean "
+          f"kernel {k1:.4f} / {k2:.4f} ms ({2.0 * q * c * d / min(k1, k2) / 1e9:.2f} TFLOP/s), "
+          f"plain {p1:.4f} ms, torch.cdist {cdist:.4f} ms; normalized cosine kernel {kc:.4f} ms, "
+          f"torch.addmm {lib:.4f} ms (kernel / library {kc / lib:.3f}); bound "
+          f"{wide_bound['bound_ms']:.4f} ms by {wide_bound['bound_by']}; max_abs_err "
+          f"{wide_err:.3e} (atol {PQ_WIDE_ATOL:.0e})")
+    pair.update({"exact_wide_shape": f"{q} x {c} x {d}", "exact_wide_ms": min(k1, k2),
+                 "exact_wide_plain_ms": p1, "exact_wide_cdist_ms": cdist,
+                 "exact_wide_cosine_ms": kc, "exact_wide_library_ms": lib,
+                 "exact_wide_library": "torch.addmm (normalized cosine)",
+                 "exact_wide_bound_ms": wide_bound["bound_ms"],
+                 "exact_wide_bound_by": wide_bound["bound_by"], "exact_wide_max_abs_err": wide_err})
+    xq = gate_vecs[-4096:].contiguous()
+    yc = gate_vecs[:65_536].contiguous()
+    xo = cuda_distance.prepare_operand(xq, Metric.EUCLIDEAN, exact=False)
+    yo = cuda_distance.prepare_operand(yc, Metric.EUCLIDEAN, exact=False)
+    fast = lambda: cuda_distance.cuda_pairwise_distance(xo, yo, Metric.EUCLIDEAN, exact=False)
+    want = pairwise_distance_bf16_dots(xq[:512], yc, Metric.EUCLIDEAN)
+    fast_err = float((fast()[:512] - want).abs().max())
+    del want
+    # unit vectors of D = 1536: |x|^2 + |y|^2 - 2 x.y sums to ~2, the bf16
+    # products summed in two orders differ by ~sqrt(D) ulps of 2
+    assert fast_err <= 1e-4, f"pairwise fast at D = 1536 disagrees: {fast_err}"
+    k1, p1 = _median_ms(fast, reps=5), _median_ms(
+        lambda: pairwise_distance_bf16_dots(xq, yc, Metric.EUCLIDEAN), reps=3)
+    k2 = _median_ms(fast, reps=5)
+    xb, yb = xq.to(torch.bfloat16), yc.to(torch.bfloat16)
+    lib = _median_ms(lambda: torch.matmul(xb, yb.T), reps=5)
+    q, c, d = 4096, 65_536, PQ_GATE_DIM
+    fast_bound = _bound(2.0 * q * c * d, PEAK_BF16_FLOPS, 2.0 * (q + c) * d + 4.0 * q * c)
+    print(f"pairwise_distance fast at the PQ flat scan's block [{q} x {c} x {d}] euclidean: kernel "
+          f"{k1:.4f} / {k2:.4f} ms ({2.0 * q * c * d / min(k1, k2) / 1e9:.2f} TFLOP/s), plain "
+          f"{p1:.4f} ms, torch.matmul of the bf16 operands {lib:.4f} ms, bound "
+          f"{fast_bound['bound_ms']:.4f} ms by {fast_bound['bound_by']}; max_abs_err {fast_err:.3e}")
+    pair.update({"fast_shape": f"{q} x {c} x {d}", "fast_ms": min(k1, k2), "fast_plain_ms": p1,
+                 "fast_library_ms": lib, "fast_library": "torch.matmul (bf16)",
+                 "fast_bound_ms": fast_bound["bound_ms"], "fast_bound_by": fast_bound["bound_by"],
+                 "fast_max_abs_err": fast_err})
+    out["pairwise_distance"] = pair
+    del xo, yo, xb, yb
+
+    # gather-and-distance at D = 1536 (the code graph's hop on the densified
+    # codes): the block that search's query-block formula gives (227 queries)
+    # and 8192 queries, 4 x 48 candidates each
+    table = gate_vecs
+    eff = PQ_GATE_DIM // PQ_GATE_DSUB * 128
+    hop_q = max(64, min(8192, (2 << 30) // (4 * 48 * eff * 4)))
+    gd = {}
+    for q in (hop_q, HOP_QUERIES):
+        queries = gate_vecs[-q:].contiguous()
+        idx = torch.randint(0, table.shape[0], (q, HOP_CANDIDATES), generator=gen, device=device,
+                            dtype=torch.int32)
+        idx[0, :2] = EMPTY_ID
+        fused = lambda: cuda_gather.cuda_gather_distance(queries, table, idx, Metric.EUCLIDEAN)
+        plain = lambda: cuda_gather.plain_gather_distance(queries, table, idx, Metric.EUCLIDEAN)
+        got, want = fused(), plain()
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        # unit rows: partial sums within [0, 4]; ~sqrt(1536) ulps of 4 apart
+        assert err <= 4e-5, f"gather_distance at D = 1536 disagrees: {err}"
+        k1, p1, k2 = _median_ms(fused), _median_ms(plain, reps=3), _median_ms(fused)
+        rows_read = float(torch.unique(idx[idx < table.shape[0]]).numel())
+        io = 4.0 * (2 * idx.numel() + q * PQ_GATE_DIM)
+        flops = 3.0 * idx.numel() * PQ_GATE_DIM
+        bound = _bound(flops, PEAK_FP32_FLOPS, io + rows_read * PQ_GATE_DIM * 4.0)
+        ms = min(k1, k2)
+        print(f"gather_distance at the PQ hop ({q} x {HOP_CANDIDATES} over [{table.shape[0]} x "
+              f"{PQ_GATE_DIM}] f32, euclidean): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} with the "
+              f"{int(rows_read)} distinct rows read once ({bound['bound_ms'] / ms:.1%}); "
+              f"max_abs_err {err:.3e}")
+        gd[q] = {"shape": f"{q} x {HOP_CANDIDATES} over [{table.shape[0]} x {PQ_GATE_DIM}]",
+                 "ms": ms, "plain_ms": p1, "max_abs_err": err, **bound}
+    out["gather_distance"] = {"path": gd[hop_q], "block_8192": gd[HOP_QUERIES]}
+
+    # row gather as reconstruct uses it: uint16 code rows, then centroid rows
+    # by j*K + code; the card's result against the CPU's, bit for bit
+    rng = np.random.default_rng(12)
+    codes = torch.from_numpy(rng.integers(0, PQ_GATE_CENTROIDS, (PQ_QUANTIZE_BLOCK // 4, 96))
+                             .astype(np.int32)).to(device)
+    codes[0] = PQ_GATE_CENTROIDS - 1
+    codes16 = narrow_codes(codes)
+    src = PqSource(codes=codes16, codebook=cents)
+    ids = torch.randint(0, codes.shape[0], (65_536,), generator=gen, device=device,
+                        dtype=torch.int32)
+    got = source_get(src, ids)
+    cpu_src = PqSource(codes=codes16.view(torch.int16).cpu().view(torch.uint16),
+                       codebook=cents.cpu())
+    assert torch.equal(got.cpu(), source_get(cpu_src, ids.cpu())), "reconstruct differs from the CPU's"
+    flat = widen_codes(codes16[:16_384]).reshape(-1)
+    k1 = _median_ms(lambda: cuda_gather.cuda_row_gather(cents, flat))
+    lib = _median_ms(lambda: torch.index_select(cents, 0, flat))
+    p1 = _median_ms(lambda: cuda_gather.plain_row_gather(cents, flat))
+    rg_bound = _bound(0.0, PEAK_FP32_FLOPS, 4.0 * flat.numel() + 64.0 * flat.numel()
+                      + min(64.0 * flat.numel(), cents.numel() * 4.0))
+    print(f"row_gather as reconstruct uses it: {ids.numel()} uint16 code rows of 96 and their "
+          f"centroids, bit-identical to the CPU's; centroid rows ({flat.numel()} of 64 bytes from "
+          f"[{PQ_GATE_CENTROIDS} x 16] f32): kernel {k1:.4f} ms, plain {p1:.4f} ms, "
+          f"torch.index_select {lib:.4f} ms, bound {rg_bound['bound_ms']:.4f} ms by "
+          f"{rg_bound['bound_by']}")
+    out["row_gather"] = {"shape": f"R={flat.numel()}, table [{PQ_GATE_CENTROIDS} x 16] f32",
+                         "ms": k1, "plain_ms": p1, "library_ms": lib, **rg_bound}
+    return out
+
+
+def _recall_at_1(ids: torch.Tensor) -> float:
+    return float((ids[:, 0] == torch.arange(ids.shape[0], device=ids.device)).float().mean())
+
+
+def _qps(label, fn, n) -> float:
+    """Queries per second of ``fn``: median of 3 timed calls, host clock with
+    synchronize (the caller's counted call before it is the warm-up)."""
+    times = []
+    for _ in range(3):
+        ts = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    secs = float(np.median(times))
+    print(f"{label}: {n / secs:.1f} QPS ({secs:.4f} s for {n} queries, median of 3)")
+    return n / secs
+
+
+def _span_summary() -> dict:
+    return {name: round(row["seconds"], 3) for name, row in TRACER.summary().items()}
+
+
+def pq_gate_phase(gate_vecs: torch.Tensor) -> tuple:
+    """10a: the reference's PQ gate at full scale.  Returns the index, the
+    launches of the PQ path (the build plus one search of each kind, counts
+    zeroed before the build) and the numbers to keep."""
+    source = DenseSource(vectors=gate_vecs)
+    TRACER.events.clear()
+    tb = time.perf_counter()
+    q, build_launches = _counted(lambda: QuantizedHnsw.new(
+        PQ_GATE_CENTROIDS, source, PQ_GATE_DSUB, Metric.EUCLIDEAN, pqp=PqBuildParams(), seed=0,
+        fast_quantize=True))
+    build_s = time.perf_counter() - tb
+    spans = _span_summary()
+    pq_src = q.hnsw.source
+    nsub = PQ_GATE_DIM // PQ_GATE_DSUB
+    assert pq_src.codes.dtype == torch.uint16 and pq_src.codes.shape == (PQ_GATE_COUNT, nsub)
+    assert pq_src.codebook.shape == (PQ_GATE_CENTROIDS, PQ_GATE_DSUB)
+    print(f"PQ gate build ({PQ_GATE_COUNT} x {PQ_GATE_DIM}, {PQ_GATE_CENTROIDS} centroids x "
+          f"{PQ_GATE_DSUB}, {nsub} uint16 codes, binned quantize): {build_s:.3f} s; spans {spans}; "
+          f"code graph {[l.node_count for l in q.hnsw.layers]}, centroid graph "
+          f"{[l.node_count for l in q.quantizer.hnsw.layers]}; launches {build_launches}")
+    assert build_launches["binned_scan"] > 0, "the quantize did not run the binned kernel"
+
+    # binned codes against the exact argmin
+    subs = gate_vecs.reshape(-1, PQ_GATE_DSUB)[:PQ_AGREE_SUBS]
+    fast = quantize_binned(subs, q.quantizer.centroids, Metric.EUCLIDEAN)
+    exact = blocked_topk_pairwise(subs, q.quantizer.centroids, Metric.EUCLIDEAN, 1,
+                                  row_block=8192)[0][:, 0]
+    agree = float((fast == exact).float().mean())
+    print(f"PQ gate: binned codes equal the exact argmin for {agree:.6f} of {PQ_AGREE_SUBS} "
+          f"sub-vectors (floor {PQ_AGREE_FLOOR})")
+    assert agree >= PQ_AGREE_FLOOR, f"binned quantize agreement {agree} below {PQ_AGREE_FLOOR}"
+
+    rows = gate_vecs[:PQ_RECALL_ROWS]
+    (flat_ids, flat_d), flat_launches = _counted(lambda: q.search_exact(rows, k=10, rerank=True))
+    flat_recall = _recall_at_1(flat_ids)
+    flat_qps = _qps("PQ gate search_exact(k=10, rerank=True)",
+                       lambda: q.search_exact(rows, k=10, rerank=True), PQ_RECALL_ROWS)
+    print(f"PQ gate flat scan: self-query recall@1 {flat_recall} (floor {PQ_FLAT_RECALL_FLOOR}); "
+          f"launches of one call {flat_launches}")
+    assert flat_ids.shape == (PQ_RECALL_ROWS, 10) and bool(torch.isfinite(flat_d).all())
+    assert flat_recall >= PQ_FLAT_RECALL_FLOOR, f"PQ flat-scan recall@1 {flat_recall}"
+
+    (g_ids, g_d), graph_launches = _counted(
+        lambda: q.search(rows, rerank=True, exact_quantize=True))
+    graph_recall = _recall_at_1(g_ids)
+    graph_qps = _qps("PQ gate search(rerank=True, exact_quantize=True)",
+                        lambda: q.search(rows, rerank=True, exact_quantize=True), PQ_RECALL_ROWS)
+    print(f"PQ gate code graph: self-query recall@1 {graph_recall} (floor {PQ_GRAPH_RECALL_FLOOR}); "
+          f"launches of one call {graph_launches}")
+    assert bool(torch.isfinite(g_d[:, 0]).all())
+    assert graph_recall >= PQ_GRAPH_RECALL_FLOOR, f"PQ code-graph recall@1 {graph_recall}"
+
+    sample = gate_vecs[:PQ_GRAPH_QUANTIZER_ROWS]
+    (s_ids, _), sample_launches = _counted(lambda: q.search(sample, rerank=True))
+    sample_qps = _qps("PQ gate search(rerank=True) with the centroid-graph quantizer",
+                         lambda: q.search(sample, rerank=True), PQ_GRAPH_QUANTIZER_ROWS)
+    sample_recall = _recall_at_1(s_ids)
+    print(f"PQ gate, centroid-graph quantizer (the default): recall@1 {sample_recall} on "
+          f"{PQ_GRAPH_QUANTIZER_ROWS} rows; launches of one call {sample_launches}")
+
+    path = {k: build_launches[k] + flat_launches[k] + graph_launches[k] for k in build_launches}
+    print(f"launches in one pass of the PQ path (the build, one search_exact, one code-graph "
+          f"search): {path}")
+    return q, path, {"build_s": build_s, "spans": spans, "agree": agree,
+                     "flat_recall_at_1": flat_recall, "flat_qps": flat_qps,
+                     "graph_recall_at_1": graph_recall, "graph_qps": graph_qps,
+                     "graph_quantizer_recall_at_1": sample_recall, "graph_quantizer_qps": sample_qps}
+
+
+def pq_c4_phase(vecs: torch.Tensor) -> tuple:
+    """10b: per-subspace k-means codebooks on config4's shapes, 200,000 rows
+    (``vecs``: the corpus, then the held-out queries).  Returns the index,
+    the numbers to keep and the binned scan's check at its search block."""
+    source, queries = DenseSource(vectors=vecs[:PQ_C4_COUNT]), vecs[PQ_C4_COUNT:]
+    metric = Metric.NORMALIZED_COSINE
+    TRACER.events.clear()
+    tb = time.perf_counter()
+    q, launches = _counted(lambda: QuantizedHnsw.new(
+        PQ_C4_CENTROIDS, source, PQ_C4_DSUB, metric, pqp=PqBuildParams(), seed=0,
+        per_subspace=True, use_kmeans=True, fast_quantize=True))
+    build_s = time.perf_counter() - tb
+    spans = _span_summary()
+    assert q.centroid_hnsw() is None
+    assert q.hnsw.source.codebook.shape == (PQ_C4_DIM // PQ_C4_DSUB, PQ_C4_CENTROIDS, PQ_C4_DSUB)
+    print(f"PQ c4 build ({PQ_C4_COUNT} x {PQ_C4_DIM}, per-subspace k-means {PQ_C4_CENTROIDS} x "
+          f"{PQ_C4_DSUB}, binned quantize): {build_s:.3f} s; spans {spans}; launches {launches}")
+    gt_ids, _ = brute_force_knn(source, queries, metric, 10)
+    (ids, d), flat_launches = _counted(
+        lambda: q.search_exact(queries, k=10, oversample=PQ_C4_OVERSAMPLE))
+    flat_recall = _recall_at_10(ids, gt_ids)
+    flat_qps = _qps(f"PQ c4 search_exact(k=10, oversample={PQ_C4_OVERSAMPLE})",
+                       lambda: q.search_exact(queries, k=10, oversample=PQ_C4_OVERSAMPLE),
+                       PQ_C4_QUERIES)
+    print(f"PQ c4 flat scan (binned route): recall@10 {flat_recall:.5f} against the exact "
+          f"full-precision scan (floor {PQ_C4_RECALL_FLOOR}); launches of one call {flat_launches}")
+    assert flat_launches["binned_scan"] > 0, "search_exact at 200k codes did not take the binned route"
+    assert flat_recall >= PQ_C4_RECALL_FLOOR, f"PQ c4 recall@10 {flat_recall}"
+
+    # the binned scan at the launch shape of that search_exact: the query
+    # block against the 200,000 decoded codes, as the path reconstructs and
+    # casts them
+    pq_src = q.hnsw.source
+    feats = cuda_scan.scan_operand(reconstruct(pq_src.codebook, pq_src.codes))
+    search_scan = _pq_binned_case("10b's search_exact block", cuda_scan.scan_operand(queries),
+                                  feats, metric, metric)
+    del feats
+
+    # ADC tables against the reconstruct-then-distance product
+    q_adc = queries[:PQ_ADC_QUERIES]
+    scores = adc_scan(adc_lut(q_adc, q.hnsw.source.codebook, metric), q.hnsw.source.codes, metric)
+    recon = q.hnsw.compute_source.vectors
+    want = cuda_distance.best_pairwise_distance(q_adc, recon, metric)
+    adc_err = float((scores - want).abs().max())
+    print(f"PQ c4 adc_scan over {PQ_C4_COUNT} codes for {PQ_ADC_QUERIES} queries: max_abs_err "
+          f"{adc_err:.3e} against the pairwise kernel on the decoded codes (atol {PQ_ADC_ATOL:.0e})")
+    assert adc_err <= PQ_ADC_ATOL, f"adc_scan disagrees: {adc_err}"
+
+    (g_ids, _), graph_launches = _counted(lambda: q.search(queries))
+    g_recall = _recall_at_10(g_ids, gt_ids)
+    g_qps = _qps("PQ c4 code-graph search", lambda: q.search(queries), PQ_C4_QUERIES)
+    q.enable_routing(dr=None)
+    q.enable_hop_slabs()
+    (r_ids, r_d), routed_launches = _counted(lambda: q.search(queries))
+    r_recall = _recall_at_10(r_ids, gt_ids)
+    r_qps = _qps("PQ c4 code-graph search, routed (bf16 cast) over bf16 slabs",
+                    lambda: q.search(queries), PQ_C4_QUERIES)
+    print(f"PQ c4 code graph: recall@10 {g_recall:.5f} plain, {r_recall:.5f} routed over slabs "
+          f"(within {ROUTED_RECALL_SLACK}); launches {graph_launches}, routed {routed_launches}")
+    assert r_recall >= g_recall - ROUTED_RECALL_SLACK, "routed slab search lost recall"
+    assert bool((r_d[:, 1:10] >= r_d[:, :9]).all()), "reranked distances not ascending"
+    q.hnsw.disable_hop_slabs()
+    q.hnsw.disable_routing()
+    return q, {"build_s": build_s, "spans": spans, "flat_recall_at_10": flat_recall,
+               "flat_qps": flat_qps, "adc_max_abs_err": adc_err, "graph_recall_at_10": g_recall,
+               "graph_qps": g_qps, "routed_slab_recall_at_10": r_recall,
+               "routed_slab_qps": r_qps}, search_scan
+
+
+def _same_codes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def pq_rest_phase(gate: QuantizedHnsw, c4: QuantizedHnsw, gate_vecs: torch.Tensor) -> dict:
+    """10c: both indexes through ``io`` and back onto the card; then the
+    hop over codes that are not densified, against the densified hop."""
+    out = {}
+    for name, q in (("gate", gate), ("c4", c4)):
+        queries = q.full_source.vectors[:PERSIST_QUERIES]
+        tmp = tempfile.mkdtemp(prefix="hnsw_smoke_pq_")
+        try:
+            ts = time.perf_counter()
+            serialize_quantized_hnsw(q, tmp)
+            tw = time.perf_counter()
+            loaded = deserialize_quantized_hnsw(tmp)
+            torch.cuda.synchronize()
+            tr = time.perf_counter()
+        finally:
+            shutil.rmtree(tmp)
+        # read back onto the card by default, where the index lives
+        assert loaded.hnsw.source.codes.device == q.hnsw.source.codes.device
+        assert _same_codes(loaded.hnsw.source.codes, q.hnsw.source.codes)
+        assert torch.equal(loaded.full_source.vectors, q.full_source.vectors)
+        (i1, d1), (i2, d2) = q.search(queries), loaded.search(queries)
+        assert torch.equal(i1, i2) and torch.equal(d1, d2), f"the loaded {name} index answers differently"
+        print(f"PQ persistence ({name}): wrote in {tw - ts:.3f} s, read in {tr - tw:.3f} s; "
+              f"{PERSIST_QUERIES} queries identical in ids and distances")
+        out[name] = {"write_s": tw - ts, "read_s": tr - tw}
+
+    # the non-dense route: the first 10,000 codes of the gate under a graph of
+    # their own, searched densified and with DENSIFY_BUDGET_BYTES = 0
+    codes = PqSource(codes=gate.hnsw.source.codes[:PQ_NON_DENSE_ROWS],
+                     codebook=gate.hnsw.source.codebook)
+    graph = Hnsw.generate(codes, None, PqBuildParams().hnsw, Metric.EUCLIDEAN, seed=0)
+    full = DenseSource(vectors=gate_vecs[:PQ_NON_DENSE_ROWS])
+    dense = QuantizedHnsw(gate.quantizer, graph, full)
+    codes_only = Hnsw(graph.layers, codes, Metric.EUCLIDEAN, graph.build_parameters)
+    codes_only.DENSIFY_BUDGET_BYTES = 0
+    sparse = QuantizedHnsw(gate.quantizer, codes_only, full)
+    assert isinstance(codes_only.compute_source, PqSource)
+    # held-out rows of the gate's corpus: a corpus row's own code would be
+    # its top-1 at distance 0 on both routes
+    queries = gate_vecs[PQ_NON_DENSE_ROWS : PQ_NON_DENSE_ROWS + PQ_NON_DENSE_QUERIES]
+    (d_ids, d_d), d_s = _timed_s(lambda: dense.search(queries, rerank=False), reps=1)
+    (s_ids, s_d), s_s = _timed_s(lambda: sparse.search(queries, rerank=False), reps=1)
+    same = d_ids[:, 0] == s_ids[:, 0]
+    top1 = float(same.float().mean())
+    drift = float((d_d[same, 0] - s_d[same, 0]).abs().max())
+    shared = d_ids == s_ids
+    print(f"PQ non-dense route ({PQ_NON_DENSE_ROWS} codes, {PQ_NON_DENSE_QUERIES} held-out "
+          f"queries, no rerank): top-1 identical for {top1:.5f}, top-1 distances within "
+          f"{drift:.3e}, at every shared slot within "
+          f"{float((d_d - s_d)[shared].abs().max()):.3e}; all {d_ids.shape[1]} ids identical for "
+          f"{float(shared.all(-1).float().mean()):.5f}; densified {d_s:.3f} s, reconstructing "
+          f"{s_s:.3f} s")
+    assert top1 >= 0.999 and drift <= 1e-5, "the non-dense route answers differently"
+    out["non_dense"] = {"top1_identical": top1, "distance_drift": drift,
+                        "densified_s": d_s, "reconstructing_s": s_s}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--count", type=int, default=200_000)
@@ -1188,8 +1726,25 @@ def main() -> None:
 
     # 9. flat scan
     flat_launches = flat_scan_phase(flat_vecs)
-    _phase("9 flat scan", t)
+    del flat_vecs
+    t = _phase("9 flat scan", t)
+
+    # 10. product quantization: the kernels at the PQ path's shapes, the
+    # reference's PQ gate, config4's per-subspace shapes, persistence and the
+    # non-dense hop
+    gate_vecs = random_unit_corpus(PQ_GATE_COUNT, PQ_GATE_DIM, seed=PQ_GATE_SEED).vectors
+    c4_vecs = clustered_corpus(PQ_C4_COUNT + PQ_C4_QUERIES, PQ_C4_DIM, seed=7, device=device)
+    pq_kernels = pq_kernel_checks(device, gate_vecs, c4_vecs)
+    t = _phase("10 PQ kernel check", t)
+    gate, pq_launches, gate_numbers = pq_gate_phase(gate_vecs)
+    t = _phase("10a PQ gate", t)
+    c4, c4_numbers, pq_kernels["binned_scan"]["c4_search"] = pq_c4_phase(c4_vecs)
+    t = _phase("10b PQ per-subspace", t)
+    rest = pq_rest_phase(gate, c4, gate_vecs)
+    del gate, c4
+    _phase("10c PQ persistence and non-dense route", t)
     _phase("total", t0)
+    print("PQ summary: " + json.dumps({"gate": gate_numbers, "c4": c4_numbers, **rest}))
 
     print(json.dumps({"kernels": [
         {
@@ -1199,7 +1754,9 @@ def main() -> None:
             "replaces": "parallel_hnsw_tpu/ops/pallas_distance.py:29",
             "launches": launches,
             "launches_flat_scan_path": flat_launches["pairwise_distance"],
+            "launches_pq_path": pq_launches["pairwise_distance"],
             **kernel,
+            "pq": pq_kernels["pairwise_distance"],
         },
         {
             "name": "bf16_operand",
@@ -1208,6 +1765,7 @@ def main() -> None:
             "replaces": "parallel_hnsw_tpu/ops/pallas_distance.py:46",
             "launches": operand_launches,
             "launches_flat_scan_path": flat_launches["bf16_operand"],
+            "launches_pq_path": pq_launches["bf16_operand"],
             **operand,
         },
         {
@@ -1216,7 +1774,9 @@ def main() -> None:
             "source": "parallel_hnsw_tpu_torch/csrc/binned_scan.cu",
             "replaces": "parallel_hnsw_tpu/ops/pallas_scan.py:42",
             "launches": flat_launches["binned"],
+            "launches_pq_path": pq_launches["binned_scan"],
             **scans["binned_scan"],
+            "pq": pq_kernels["binned_scan"],
         },
         {
             "name": "folded_scan",
@@ -1224,6 +1784,7 @@ def main() -> None:
             "source": "parallel_hnsw_tpu_torch/csrc/binned_scan.cu",
             "replaces": "parallel_hnsw_tpu/ops/pallas_scan.py:161",
             "launches": flat_launches["folded"],
+            "launches_pq_path": pq_launches["folded_scan"],
             **scans["folded_scan"],
         },
         {
@@ -1233,7 +1794,9 @@ def main() -> None:
             "replaces": "scripts/gather_kernel_study.py:34",
             "launches": hop_launches["row_gather"],
             "launches_build_and_search": build_and_search["row_gather"],
+            "launches_pq_path": pq_launches["row_gather"],
             **gather,
+            "pq": pq_kernels["row_gather"],
         },
         {
             "name": "gather_distance",
@@ -1242,7 +1805,9 @@ def main() -> None:
             "replaces": "scripts/gather_kernel_study.py:34",
             "launches": hop_launches["gather_distance"],
             "launches_build_and_search": build_and_search["gather_distance"],
+            "launches_pq_path": pq_launches["gather_distance"],
             **gather_distance,
+            "pq": pq_kernels["gather_distance"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

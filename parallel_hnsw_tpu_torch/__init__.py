@@ -5,8 +5,11 @@ build (with checkpoint resume), the improve/promote self-repair loop, batched
 beam search (plain, instrumented, adaptive, routed over bf16 routing rows,
 over hop slabs), all-pairs ``knn`` / ``threshold_nn`` and exact brute-force
 top-k; the flat-scan path (``fast_flat_knn``,
-``Hnsw.search_exact(fast=True)``); and dense index persistence (``io``, the
-JAX package's directory format).  The kernels are hand-written CUDA for
+``Hnsw.search_exact(fast=True)``); product quantization (``QuantizedHnsw``
+over a ``PqSource``: shared or per-subspace codebooks, graph / exact / binned
+quantization, ADC tables, flat scan with exact rerank); and index
+persistence, dense and quantized (``io``, the JAX package's directory
+format).  The kernels are hand-written CUDA for
 Hopper, built with ``nvcc`` at first use: pairwise distances
 (``csrc/pairwise_distance.cu``), the binned and folded distance scans
 (``csrc/binned_scan.cu``), the row gather (``csrc/row_gather.cu``) and the
@@ -25,23 +28,36 @@ Quick start::
     ids, dists = hnsw.search(queries)
     ids, dists = hnsw.search_exact(queries, k=10, fast=True)  # flat scan
     serialize_hnsw(hnsw, "index_dir"); hnsw = deserialize_hnsw("index_dir")
+
+    pq = QuantizedHnsw.new(65535, source, dsub=4, metric=Metric.EUCLIDEAN,
+                           fast_quantize=True)
+    ids, dists = pq.search(queries)        # code graph + exact rerank
+    ids, dists = pq.search_exact(queries)  # flat scan over the codes
 """
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, MATCH_EPSILON
-from parallel_hnsw_tpu_torch.graph import DenseSource, Layer
+from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, PqSource
 from parallel_hnsw_tpu_torch.analysis import brute_force_knn, fast_flat_knn, select_scan_mode
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.io import (
     IndexNotFound,
     SerializationError,
     deserialize_hnsw,
+    deserialize_quantized_hnsw,
     deserialize_source,
     read_index_meta,
     serialize_hnsw,
+    serialize_quantized_hnsw,
     serialize_source,
 )
 from parallel_hnsw_tpu_torch.ops.distance import Metric
-from parallel_hnsw_tpu_torch.params import BuildParams, OptimizationParams, SearchParams
+from parallel_hnsw_tpu_torch.params import (
+    BuildParams,
+    OptimizationParams,
+    PqBuildParams,
+    SearchParams,
+)
+from parallel_hnsw_tpu_torch.pq import HnswQuantizer, QuantizedHnsw, SubspaceQuantizer
 from parallel_hnsw_tpu_torch.progress import CallbackProgressMonitor, Interrupt, ProgressMonitor
 
 __all__ = [
@@ -50,11 +66,16 @@ __all__ = [
     "MATCH_EPSILON",
     "BuildParams",
     "OptimizationParams",
+    "PqBuildParams",
     "SearchParams",
     "Metric",
     "Hnsw",
     "Layer",
     "DenseSource",
+    "PqSource",
+    "QuantizedHnsw",
+    "HnswQuantizer",
+    "SubspaceQuantizer",
     "ProgressMonitor",
     "CallbackProgressMonitor",
     "Interrupt",
@@ -63,6 +84,8 @@ __all__ = [
     "select_scan_mode",
     "serialize_hnsw",
     "deserialize_hnsw",
+    "serialize_quantized_hnsw",
+    "deserialize_quantized_hnsw",
     "serialize_source",
     "deserialize_source",
     "read_index_meta",

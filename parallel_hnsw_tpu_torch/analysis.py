@@ -16,7 +16,14 @@ import numpy as np
 import torch
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE, MATRIX_BYTE_BUDGET
-from parallel_hnsw_tpu_torch.graph import Layer, Source, materialize_source, source_get
+from parallel_hnsw_tpu_torch.graph import (
+    DenseSource,
+    Layer,
+    Source,
+    gather_features,
+    materialize_source,
+    source_get,
+)
 from parallel_hnsw_tpu_torch.ops.cuda_distance import best_pairwise_distance, prepare_operand
 from parallel_hnsw_tpu_torch.ops.cuda_scan import LANES, binned_scan, folded_scan, scan_operand
 from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance
@@ -56,6 +63,7 @@ def flat_corpus_block(
     query_block: int = 4096,
     corpus_block: int = 1 << 19,
     tile_c: int = FLAT_TILE_C,
+    dense: bool = True,
 ) -> int:
     """Rows of the corpus that one scan block of :func:`fast_flat_knn` covers.
 
@@ -65,11 +73,15 @@ def flat_corpus_block(
     never the distances) a binned block is ``tile_c / 128`` times wider; the
     plain versions materialize ``[query_block, rows]``, so on the CPU the
     unreduced bound stays.  A folded scan's output does not grow with the
-    corpus: a dense corpus is one block, streamed by the kernel."""
+    corpus: a ``dense`` corpus is one block, streamed by the kernel; a source
+    that is reconstructed block by block (PQ) keeps the reduced bound, as in
+    the JAX package."""
     reduction = tile_c // LANES
     budget_cols = MATRIX_BYTE_BUDGET // (query_block * 4)
     if mode == "folded":
-        return n
+        if dense:
+            return n
+        return max(tile_c, min(corpus_block * reduction, budget_cols * reduction))
     if mode == "binned" and fused:
         return max(tile_c, min(corpus_block * reduction, budget_cols * reduction))
     return max(tile_c if mode == "binned" else 4096, min(corpus_block, budget_cols))
@@ -134,12 +146,23 @@ def fast_flat_knn(
     mode = select_scan_mode(n) if scan_mode == "auto" else scan_mode
     if mode not in ("exhaustive", "binned", "folded"):
         raise ValueError(f"unknown scan_mode {scan_mode!r}")
-    corpus_block = flat_corpus_block(n, mode, queries.is_cuda, query_block, corpus_block, tile_c)
+    dense = isinstance(source, DenseSource)
+    corpus_block = flat_corpus_block(
+        n, mode, queries.is_cuda, query_block, corpus_block, tile_c, dense=dense
+    )
     queries = queries.contiguous()
-    vectors = materialize_source(source).contiguous()
-    # the fast kernels take bf16 copies of their operands: made once, not per block
+    # the fast kernels take bf16 copies of their operands: a dense corpus's
+    # is made once, a reconstructed source's once per block it is rebuilt
     exhaustive = mode == "exhaustive"
-    vectors = prepare_operand(vectors, metric, exact=False) if exhaustive else scan_operand(vectors)
+
+    def operand(m):
+        m = m.contiguous()
+        return prepare_operand(m, metric, exact=False) if exhaustive else scan_operand(m)
+
+    if dense:
+        vectors = operand(source.vectors)
+    else:
+        all_ids = torch.arange(n, dtype=ID_DTYPE, device=queries.device)
     out_i, out_d = [], []
     for qs in range(0, queries.shape[0], query_block):
         q = queries[qs : qs + query_block]
@@ -147,14 +170,17 @@ def fast_flat_knn(
         best_i = best_d = None
         for cs in range(0, n, corpus_block):
             kk = min(k_scan, n - cs, corpus_block)
-            if mode == "folded":
+            if not dense:
+                vecs = operand(gather_features(source, all_ids[cs : cs + corpus_block]))
+            elif exhaustive:
+                vecs = vectors.narrow(cs, cs + corpus_block)
+            else:
                 vecs = vectors[cs : cs + corpus_block]
+            if mode == "folded":
                 bd, bc = folded_scan(q, vecs, metric, tile_c=tile_c, exact=False)
             elif mode == "binned":
-                vecs = vectors[cs : cs + corpus_block]
                 bd, bc = binned_scan(q, vecs, metric, tile_c=tile_c, exact=False)
             else:
-                vecs = vectors.narrow(cs, cs + corpus_block)
                 bd, bc = best_pairwise_distance(q, vecs, metric, exact=False), None
             idx, dd = _cut_survivors(bd, bc, cs, kk)
             if best_i is None:

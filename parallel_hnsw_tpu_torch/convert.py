@@ -13,6 +13,14 @@ can be run on one identical graph.  ``routing_to_numpy`` /
 ``routing_from_numpy`` do the same for a routing cache, whose bf16 rows
 travel as their uint16 bit patterns (numpy has no bfloat16) — for a JAX
 cache ``np.asarray(cache.rows).view(np.uint16)``.
+
+``quantized_to_numpy`` / ``quantized_from_numpy`` carry a
+:class:`~parallel_hnsw_tpu_torch.pq.QuantizedHnsw` the same way, as one dict
+of numpy arrays and plain values.  ``quantized_to_numpy`` reads only
+attributes the two packages share and turns arrays with ``np.asarray``, so it
+takes a JAX ``QuantizedHnsw`` as well::
+
+    q = quantized_from_numpy(quantized_to_numpy(jax_quantized), "cuda")
 """
 
 from __future__ import annotations
@@ -22,10 +30,16 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.graph import DenseSource, make_layer
+from parallel_hnsw_tpu_torch.graph import DenseSource, PqSource, make_layer
 from parallel_hnsw_tpu_torch.index import Hnsw
+from parallel_hnsw_tpu_torch.io import from_numpy, to_numpy
 from parallel_hnsw_tpu_torch.ops.distance import Metric
-from parallel_hnsw_tpu_torch.params import build_params_from_dict, params_to_dict
+from parallel_hnsw_tpu_torch.params import (
+    build_params_from_dict,
+    params_to_dict,
+    pq_build_params_from_dict,
+)
+from parallel_hnsw_tpu_torch.pq import HnswQuantizer, QuantizedHnsw, SubspaceQuantizer
 from parallel_hnsw_tpu_torch.routing import RoutingCache
 from parallel_hnsw_tpu_torch.utils import device as _device
 
@@ -89,3 +103,64 @@ def routing_from_numpy(
         rows=torch.from_numpy(bits).to(device).view(torch.bfloat16),
         metric=Metric(metric),
     )
+
+
+def _numpy(arr) -> np.ndarray:
+    """A tensor of either package as numpy."""
+    return to_numpy(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+
+
+def _layers_to_numpy(hnsw) -> List[Tuple[np.ndarray, np.ndarray]]:
+    return [(_numpy(l.nodes), _numpy(l.neighbors)) for l in hnsw.layers]
+
+
+def quantized_to_numpy(q) -> Dict[str, Any]:
+    """The state of a quantized index (of either package) as a dict:
+    ``codes`` (``uint16`` or int32, as stored), ``codebook`` (``[K, dsub]``
+    or ``[nsub, K, dsub]``), ``code_layers`` and ``build_params`` of the code
+    graph, ``centroid_layers`` / ``centroid_build_params`` of the centroid
+    graph (``None`` for a per-subspace quantizer), ``nsub``, ``vectors`` (the
+    full-precision corpus), ``metric`` and ``pq_params``, the arguments of
+    :func:`quantized_from_numpy`."""
+    quantizer = q.quantizer
+    centroid = getattr(quantizer, "hnsw", None)
+    return {
+        "codes": _numpy(q.hnsw.source.codes),
+        "codebook": _numpy(q.hnsw.source.codebook),
+        "code_layers": _layers_to_numpy(q.hnsw),
+        "build_params": params_to_dict(q.hnsw.build_parameters),
+        "centroid_layers": None if centroid is None else _layers_to_numpy(centroid),
+        "centroid_build_params": None if centroid is None else params_to_dict(
+            centroid.build_parameters),
+        "nsub": int(q.hnsw.source.codes.shape[1]),
+        "vectors": _numpy(q.full_source.vectors),
+        "metric": q.hnsw.metric.value,
+        "pq_params": params_to_dict(quantizer.pq_params),
+    }
+
+
+def quantized_from_numpy(state: Dict[str, Any], device=None) -> QuantizedHnsw:
+    """The port's :class:`QuantizedHnsw` from :func:`quantized_to_numpy`'s
+    dict, placed on ``device`` (``None``: the card).  A shared ``[K, dsub]``
+    codebook becomes an :class:`HnswQuantizer` over the centroid graph, a
+    ``[nsub, K, dsub]`` one a :class:`SubspaceQuantizer`."""
+    device = _device.resolve_device(device)
+    metric = Metric(state["metric"])
+    codebook = from_numpy(np.array(state["codebook"], np.float32), device)
+    pqp = pq_build_params_from_dict(state["pq_params"])
+    if codebook.dim() == 3:
+        quantizer = SubspaceQuantizer(codebook, metric, pqp)
+    else:
+        centroid = Hnsw(
+            [make_layer(n, nb, device) for n, nb in state["centroid_layers"]],
+            DenseSource(vectors=codebook), metric,
+            build_params_from_dict(state["centroid_build_params"]),
+        )
+        quantizer = HnswQuantizer(centroid, int(state["nsub"]), pqp)
+    code_graph = Hnsw(
+        [make_layer(n, nb, device) for n, nb in state["code_layers"]],
+        PqSource(codes=from_numpy(np.array(state["codes"]), device), codebook=codebook), metric,
+        build_params_from_dict(state["build_params"]),
+    )
+    full = DenseSource(vectors=from_numpy(np.array(state["vectors"], np.float32), device))
+    return QuantizedHnsw(quantizer, code_graph, full)

@@ -1,25 +1,27 @@
 """Graph data model: dense tensors instead of pointer-chasing
-(counterpart of ``parallel_hnsw_tpu.graph``, dense part).
+(counterpart of ``parallel_hnsw_tpu.graph``, without the out-of-core source).
 
 Per layer
 
 * ``nodes  [N]    int32`` — sorted vector ids (ascending)
 * ``neighbors [N, M] int32`` — node-id rows, ``EMPTY_ID``-padded
 
-plus a *vector source* that gathers feature vectors for ids.  Every tensor of
-an index lives on the source's device.
+plus a *vector source* that gathers feature vectors for ids: a
+:class:`DenseSource` or a :class:`PqSource` (codes + codebook).  Every tensor
+of an index lives on the source's device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+import functools
+from typing import NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID, ID_DTYPE
 from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
-from parallel_hnsw_tpu_torch.ops.distance import Metric
+from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance
 
 
 class Layer(NamedTuple):
@@ -55,17 +57,99 @@ class DenseSource(NamedTuple):
         return self.vectors.device
 
 
-Source = DenseSource
+class PqSource(NamedTuple):
+    """PQ-compressed vectors: per-id codes plus a codebook.
+
+    The codebook is either shared across subspaces, ``[K, Dsub]`` (the
+    reference's design, src/pq.rs:29-82), or per-subspace ``[Q, K, Dsub]``
+    (classic PQ).  Codes are ``uint16`` when K <= 65536 (the reference's u16
+    codes, src/pq.rs:20), else int32; they are widened to int32 only for a
+    gather (:func:`widen_codes`).  :func:`source_get` reconstructs full
+    vectors by codebook gather."""
+
+    codes: torch.Tensor  # [V, Q] uint16 or int32 centroid ids per subspace
+    codebook: torch.Tensor  # [K, Dsub] shared or [Q, K, Dsub] per-subspace, f32
+
+    @property
+    def dim(self) -> int:
+        if self.codebook.dim() == 2:
+            return self.codes.shape[1] * self.codebook.shape[1]
+        return self.codebook.shape[0] * self.codebook.shape[2]
+
+    @property
+    def count(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
 
 
-def source_get(source: Source, ids: torch.Tensor) -> torch.Tensor:
+Source = Union[DenseSource, PqSource]
+
+
+def widen_codes(codes: torch.Tensor) -> torch.Tensor:
+    """PQ codes as int32.  ``uint16`` codes go through their int16 bit
+    pattern: torch gives ``uint16`` storage, views and copies, and little
+    arithmetic."""
+    if codes.dtype == torch.uint16:
+        return codes.view(torch.int16).to(torch.int32) & 0xFFFF
+    return codes.to(torch.int32)
+
+
+def narrow_codes(codes: torch.Tensor) -> torch.Tensor:
+    """int32 codes in ``[0, 65536)`` as ``uint16`` (through int16, which
+    keeps the low 16 bits)."""
+    return codes.to(torch.int16).view(torch.uint16)
+
+
+@functools.singledispatch
+def source_get(source, ids: torch.Tensor) -> torch.Tensor:
     """Gather feature vectors for ``ids`` (any shape) -> ``[*ids.shape, D]``.
 
     Ids are clipped into range (the row-gather kernel does not check them);
     EMPTY_ID gathers a real row, so callers mask distances of invalid slots
-    to +inf."""
+    to +inf.  Dispatches on the source's type, as the JAX package does; the
+    other functions that take a source (``source_distance``,
+    ``materialize_source``, ``source_effective_width``, ...) still branch
+    with ``isinstance`` on the two kinds, so a new kind must be added there
+    too."""
+    raise TypeError(f"unknown source type {type(source)}")
+
+
+@source_get.register
+def _(source: DenseSource, ids: torch.Tensor) -> torch.Tensor:
     safe = torch.clamp(ids, 0, source.vectors.shape[0] - 1).to(ID_DTYPE)
     return row_gather(source.vectors, safe)
+
+
+@source_get.register
+def _(source: PqSource, ids: torch.Tensor) -> torch.Tensor:
+    safe = torch.clamp(ids, 0, source.count - 1).to(ID_DTYPE)
+    return reconstruct(source.codebook, row_gather(source.codes, safe))
+
+
+def reconstruct(codebook: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Decode PQ codes ``[*, Q]`` -> vectors ``[*, Q*Dsub]`` by one row gather
+    of centroids (reference: Quantizer::reconstruct, src/pq.rs:73-81).  A
+    shared ``[K, Dsub]`` codebook is indexed by the codes; a per-subspace
+    ``[Q, K, Dsub]`` one as the table ``[Q*K, Dsub]`` at ``j*K + code``.
+    Codes are clipped into ``[0, K)``, as the JAX package does."""
+    nsub = codes.shape[-1]
+    codes = widen_codes(codes)
+    if codebook.dim() == 2:
+        k, dsub = codebook.shape
+        idx = torch.clamp(codes, 0, k - 1)
+        table = codebook
+    else:
+        nsub_b, k, dsub = codebook.shape
+        if nsub_b != nsub:
+            raise ValueError(f"codes of {nsub} subspaces against a codebook of {nsub_b}")
+        offsets = torch.arange(nsub, dtype=torch.int32, device=codes.device) * k
+        idx = torch.clamp(codes, 0, k - 1) + offsets
+        table = codebook.reshape(nsub * k, dsub)
+    sub = row_gather(table.contiguous(), idx)  # [*, Q, Dsub]
+    return sub.reshape(*codes.shape[:-1], nsub * dsub)
 
 
 def source_distance(
@@ -79,26 +163,43 @@ def source_distance(
     The rows of a dense source are one tensor, so the gather and the
     distances are one kernel on the card
     (:func:`~parallel_hnsw_tpu_torch.ops.cuda_gather.gather_distance`): the
-    gathered rows never reach device memory.  This is the place where a
-    source whose rows are not one dense tensor (the JAX package's
-    ``MemmapSource`` and ``PqSource``, not ported yet) is to compute
-    ``source_get`` + ``batched_distance`` instead."""
-    return gather_distance(queries, source.vectors, ids, metric)
+    gathered rows never reach device memory.  Any other source (a
+    :class:`PqSource` that ``Hnsw.compute_source`` did not densify)
+    reconstructs the rows with :func:`source_get` and takes
+    ``batched_distance``."""
+    if isinstance(source, DenseSource):
+        return gather_distance(queries, source.vectors, ids, metric)
+    inside = (ids >= 0) & (ids < source.count)
+    d = batched_distance(queries, source_get(source, torch.where(inside, ids, 0)), metric)
+    return torch.where(inside, d, float("inf"))
 
 
 def source_effective_width(source: Source) -> int:
-    """Bytes-per-vector proxy for block-size budgeting; the JAX package pads
-    the width to 128 lanes, kept here so block sizes agree."""
+    """Bytes-per-vector proxy for block-size budgeting.  The JAX package pads
+    every gathered row to 128 lanes (a PQ reconstruction gathers ``[*, Dsub]``
+    rows, each padded to 128), kept here so both packages cut the same
+    blocks."""
+    if isinstance(source, PqSource):
+        if source.codebook.dim() == 2:
+            nsub, dsub = source.codes.shape[1], source.codebook.shape[1]
+        else:
+            nsub, _, dsub = source.codebook.shape
+        return nsub * max(dsub, 128)
     return max(source.dim, 128)
 
 
-def materialize_source(source: Source) -> torch.Tensor:
-    """The source as a dense f32 ``[N, D]`` tensor (no copy for DenseSource)."""
-    return source.vectors
+def materialize_source(source: Source, block: int = 16384) -> torch.Tensor:
+    """The source as a dense f32 ``[N, D]`` tensor: a DenseSource as it is
+    (no copy), any other source gathered in row blocks."""
+    if isinstance(source, DenseSource):
+        return source.vectors
+    ids = torch.arange(source.count, dtype=ID_DTYPE, device=source.device)
+    return gather_features(source, ids, block)
 
 
 def gather_features(source: Source, ids: torch.Tensor, block: int = 8192) -> torch.Tensor:
-    """source_get in row blocks for 1-D id tensors."""
+    """source_get in row blocks for 1-D id tensors (bounds the transient
+    codes and centroid rows of a PQ reconstruction)."""
     n = ids.shape[0]
     if n <= block:
         return source_get(source, ids)

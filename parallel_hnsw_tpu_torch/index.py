@@ -1,5 +1,5 @@
 """The Hnsw index: user-facing API tying build/search/optimize/promote together
-(counterpart of the dense part of ``parallel_hnsw_tpu.index``).
+(counterpart of ``parallel_hnsw_tpu.index``).
 
 API parity with the reference's ``Hnsw<C>`` (src/lib.rs:585-1686): generate,
 search[_upto,_instrumented], knn, threshold_nn, improve_index,
@@ -26,8 +26,10 @@ from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE
 from parallel_hnsw_tpu_torch.graph import (
     DenseSource,
     Layer,
+    PqSource,
     Source,
     assert_layer_invariants,
+    materialize_source,
     source_get,
 )
 from parallel_hnsw_tpu_torch.ops.distance import Metric
@@ -65,6 +67,7 @@ class Hnsw:
         self.metric = Metric(metric)
         self.build_parameters = build_parameters or BuildParams()
         self.verbose = verbose
+        self._dense_cache: Optional[Tuple[Source, DenseSource]] = None
         self._routing: Optional[_routing.RoutingCache] = None
         self._hop_slabs: Optional[_routing.HopSlabs] = None
 
@@ -158,8 +161,9 @@ class Hnsw:
             )
             return self_ref.layers
 
+        build_source = self_ref.compute_source  # densified for PQ (same distances)
         self_ref.layers = _build.generate(
-            source, vector_ids, bp, metric, seed, improver, initial_layers=initial_layers
+            build_source, vector_ids, bp, metric, seed, improver, initial_layers=initial_layers
         )
         if improve and bp.final_relink_sweeps > 0:
             for _ in range(bp.final_relink_sweeps):
@@ -167,7 +171,7 @@ class Hnsw:
                 with TRACER.span("final_relink_sweep"):
                     for lft in range(self_ref.layer_count):
                         self_ref.layers, _, _ = _optimize.link_layer_to_better_neighbors(
-                            self_ref.layers, lft, source, metric,
+                            self_ref.layers, lft, build_source, metric,
                             bp.optimization.search,
                             exact_threshold=bp.optimization.exact_relink_threshold,
                             fast_threshold=bp.optimization.fast_relink_threshold,
@@ -179,11 +183,26 @@ class Hnsw:
             serialize_hnsw(self_ref, checkpoint_dir, store_source=False, extra_meta=ckpt_meta)
         return self_ref
 
+    # Densified compute cache: PQ reconstruction is deterministic, so when
+    # the decoded corpus fits the budget every compute phase runs against a
+    # dense copy, with identical distances and one row per candidate instead
+    # of 1 + nsub gathered rows.  The JAX package's value, sized for a 16 GB
+    # TPU and not measured again on the card; an instance may set its own.
+    DENSIFY_BUDGET_BYTES = 4 << 30
+
     @property
     def compute_source(self) -> Source:
-        """The source every compute phase runs against.  The JAX package
-        densifies a PQ source here; until PQ is ported it is the source."""
-        return self.source
+        """The source every compute phase runs against: a PqSource whose
+        dense copy fits ``DENSIFY_BUDGET_BYTES`` is densified once (in row
+        blocks) and cached; any other source is itself."""
+        source = self.source
+        if not isinstance(source, PqSource):
+            return source
+        if source.count * source.dim * 4 > self.DENSIFY_BUDGET_BYTES:
+            return source
+        if self._dense_cache is None or self._dense_cache[0] is not source:
+            self._dense_cache = (source, DenseSource(vectors=materialize_source(source)))
+        return self._dense_cache[1]
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -351,13 +370,15 @@ class Hnsw:
         up) that keeps ``oversample * k`` survivors, then a full-precision
         rerank restores exact ordering before the cut to ``k``."""
         if fast:
-            return fast_flat_knn(self.source, queries, self.metric, k, oversample, query_block)
-        return brute_force_knn(self.source, queries, self.metric, k, query_block)
+            return fast_flat_knn(
+                self.compute_source, queries, self.metric, k, oversample, query_block
+            )
+        return brute_force_knn(self.compute_source, queries, self.metric, k, query_block)
 
     def search_ids(self, vector_ids, sp=None, exclude_self: bool = False):
         """Search with stored vectors as queries (AbstractVector::Stored)."""
         vector_ids = torch.as_tensor(vector_ids, dtype=ID_DTYPE, device=self.source.device)
-        queries = source_get(self.source, vector_ids)
+        queries = source_get(self.compute_source, vector_ids)
         exclude = vector_ids if exclude_self else None
         return self.search(queries, sp, exclude=exclude)
 
@@ -488,11 +509,13 @@ class Hnsw:
 
     def stochastic_recall_at(self, at: int, op: Optional[OptimizationParams] = None) -> float:
         op = op or self.build_parameters.optimization
-        return _optimize.stochastic_recall_at(self.layers, at, self.source, self.metric, op)
+        return _optimize.stochastic_recall_at(
+            self.layers, at, self.compute_source, self.metric, op
+        )
 
     def stochastic_recall(self, op: Optional[OptimizationParams] = None) -> float:
         op = op or self.build_parameters.optimization
-        return _optimize.stochastic_recall(self.layers, self.source, self.metric, op)
+        return _optimize.stochastic_recall(self.layers, self.compute_source, self.metric, op)
 
     def improve_neighbors(
         self,
@@ -502,20 +525,23 @@ class Hnsw:
     ) -> float:
         op = op or self.build_parameters.optimization
         self.layers, recall = _optimize.improve_neighbors(
-            self.layers, self.source, self.metric, op, last_recall, monitor=progress
+            self.layers, self.compute_source, self.metric, op, last_recall, monitor=progress
         )
         self._invalidate_hop_slabs()
         return recall
 
     def _promoter(self, layers: List[Layer], lft: int, bp: BuildParams, monitor=None):
         def generate_fn(vecs: np.ndarray, new_bp: BuildParams) -> List[Layer]:
+            # the ephemeral top-stack rebuild runs on the densified compute
+            # source directly (only its layers are spliced back)
             sub = Hnsw.generate(
-                self.source, vecs, new_bp, self.metric, improve=True, verbose=self.verbose
+                self.compute_source, vecs, new_bp, self.metric, improve=True,
+                verbose=self.verbose,
             )
             return sub.layers
 
         return _promote.promote_at_layer(
-            layers, lft, bp, self.source, self.metric, generate_fn,
+            layers, lft, bp, self.compute_source, self.metric, generate_fn,
             log=self._log if self.verbose else None, monitor=monitor,
         )
 
@@ -541,7 +567,7 @@ class Hnsw:
         self.layers, recall = _optimize.improve_index(
             self.layers,
             bp,
-            self.source,
+            self.compute_source,
             self.metric,
             last_recall,
             promoter,
@@ -558,7 +584,7 @@ class Hnsw:
     ) -> np.ndarray:
         sp = sp or self.build_parameters.optimization.search
         return _promote.discover_unreachable_vectors(
-            self.layers, layer_id_from_top, self.source, self.metric, sp
+            self.layers, layer_id_from_top, self.compute_source, self.metric, sp
         )
 
     def extend_layer(self, layer_id: int, vecs: np.ndarray) -> None:

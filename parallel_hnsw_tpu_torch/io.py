@@ -1,12 +1,14 @@
-"""Index persistence: directory format with pinned dtypes (counterpart of the
-dense part of ``parallel_hnsw_tpu.io``).
+"""Index persistence: directory format with pinned dtypes (counterpart of
+``parallel_hnsw_tpu.io``, without the sharded index).
 
 Same layout as the JAX package (and, in shape, the reference's
 src/serialize.rs:33-209), so either package reads what the other wrote:
 ``meta`` JSON with layer_count + build parameters, per-layer
 ``layer.meta.{n}`` JSON and raw ``layer.nodes.{n}`` / ``layer.neighbors.{n}``
 dumps (numbered from the *bottom*), plus a ``comparator/`` directory for the
-vector store.  All arrays are little-endian int32/float32.
+vector store.  All arrays are little-endian int32/float32, PQ codes
+``uint16`` or int32 as stored.  A quantized index nests ``quantizer/``,
+``hnsw/`` and ``comparator/`` (reference: src/pq.rs:433-452).
 
 Every ``deserialize_*`` takes a ``device`` and places what it reads there
 (``None``: the card, :func:`parallel_hnsw_tpu_torch.utils.device.default_device`).
@@ -21,10 +23,15 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, Source
+from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, PqSource, Source
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.ops.distance import Metric
-from parallel_hnsw_tpu_torch.params import build_params_from_dict, params_to_dict
+from parallel_hnsw_tpu_torch.params import (
+    build_params_from_dict,
+    params_to_dict,
+    pq_build_params_from_dict,
+)
+from parallel_hnsw_tpu_torch.pq import HnswQuantizer, QuantizedHnsw, SubspaceQuantizer
 from parallel_hnsw_tpu_torch.utils import device as _device
 
 FORMAT_VERSION = 1
@@ -38,14 +45,29 @@ class IndexNotFound(SerializationError):
     """Missing comparator directory (reference: serialize.rs:143-146)."""
 
 
+def to_numpy(arr: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; ``uint16`` through its int16 bits."""
+    arr = arr.detach()
+    if arr.dtype == torch.uint16:  # viewed before the copy: copies of uint16 are few
+        return arr.view(torch.int16).cpu().numpy().view(np.uint16)
+    return arr.cpu().numpy()
+
+
+def from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """:func:`to_numpy` backwards, onto ``device``."""
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.uint16)
+    return torch.from_numpy(arr).to(device)
+
+
 def _write_array(path: Path, arr: torch.Tensor, dtype: str) -> None:
-    host = arr.detach().cpu().numpy()
+    host = to_numpy(arr)
     np.ascontiguousarray(host.astype(np.dtype(dtype).newbyteorder("<"))).tofile(path)
 
 
 def _read_array(path: Path, dtype: str, shape, device: torch.device) -> torch.Tensor:
     arr = np.fromfile(path, dtype=np.dtype(dtype).newbyteorder("<")).reshape(shape)
-    return torch.from_numpy(arr.astype(dtype, copy=False)).to(device)
+    return from_numpy(arr.astype(dtype, copy=False), device)
 
 
 # -- source (comparator) serialization --------------------------------------
@@ -54,24 +76,40 @@ def _read_array(path: Path, dtype: str, shape, device: torch.device) -> torch.Te
 def serialize_source(source: Source, path: Union[str, Path]) -> None:
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    if not isinstance(source, DenseSource):
+    if isinstance(source, DenseSource):
+        count, dim = source.vectors.shape
+        meta = {"kind": "dense", "count": count, "dim": dim}
+        _write_array(path / "vectors", source.vectors, "float32")
+    elif isinstance(source, PqSource):
+        code_dtype = str(source.codes.dtype).replace("torch.", "")
+        meta = {
+            "kind": "pq",
+            "count": source.codes.shape[0],
+            "nsub": source.codes.shape[1],
+            "code_dtype": code_dtype,
+            "codebook_shape": list(source.codebook.shape),  # [K, dsub] or [Q, K, dsub]
+        }
+        _write_array(path / "codes", source.codes, code_dtype)
+        _write_array(path / "codebook", source.codebook, "float32")
+    else:
         raise SerializationError(f"unknown source type {type(source)}")
-    count, dim = source.vectors.shape
-    _write_array(path / "vectors", source.vectors, "float32")
-    (path / "meta").write_text(json.dumps({"kind": "dense", "count": count, "dim": dim}))
+    (path / "meta").write_text(json.dumps(meta))
 
 
 def deserialize_source(path: Union[str, Path], device=None) -> Source:
     path = Path(path)
     meta = json.loads((path / "meta").read_text())
+    device = _device.resolve_device(device)
     if meta["kind"] == "dense":
-        vec = _read_array(
-            path / "vectors", "float32", (meta["count"], meta["dim"]),
-            _device.resolve_device(device),
-        )
+        vec = _read_array(path / "vectors", "float32", (meta["count"], meta["dim"]), device)
         return DenseSource(vectors=vec)
     if meta["kind"] == "pq":
-        raise SerializationError("a PQ source cannot be read yet: PQ is not ported")
+        dt = meta.get("code_dtype", "int32")
+        if dt not in ("uint16", "int32"):
+            raise SerializationError(f"unknown PQ code dtype {dt}")
+        codes = _read_array(path / "codes", dt, (meta["count"], meta["nsub"]), device)
+        book = _read_array(path / "codebook", "float32", tuple(meta["codebook_shape"]), device)
+        return PqSource(codes=codes, codebook=book)
     raise SerializationError(f"unknown source kind {meta['kind']}")
 
 
@@ -165,3 +203,62 @@ def deserialize_hnsw(
         )
         layers.append(Layer(nodes=nodes, neighbors=neighbors))
     return Hnsw(layers, source, metric, bp)
+
+
+# -- quantized hnsw (reference: src/pq.rs:413-477) ---------------------------
+
+
+def _serialize_quantizer(quantizer, path: Path) -> None:
+    """Persist either quantizer kind under ``quantizer/``: an HnswQuantizer
+    as its centroid graph (reference: src/pq.rs:433-441), a
+    SubspaceQuantizer as its raw ``[nsub, K, dsub]`` codebooks with a
+    ``quantizer_kind`` tag."""
+    path = Path(path)
+    if isinstance(quantizer, SubspaceQuantizer):
+        path.mkdir(parents=True, exist_ok=True)
+        _write_array(path / "codebooks", quantizer.codebooks, "float32")
+        (path / "pq_build_parameters.json").write_text(
+            json.dumps(
+                {
+                    "quantizer_kind": "subspace",
+                    "codebooks_shape": list(quantizer.codebooks.shape),
+                    "metric": quantizer.metric.value,
+                    "pq_params": params_to_dict(quantizer.pq_params),
+                }
+            )
+        )
+        return
+    serialize_hnsw(quantizer.hnsw, path)
+    (path / "pq_build_parameters.json").write_text(
+        json.dumps({"nsub": quantizer.nsub, "pq_params": params_to_dict(quantizer.pq_params)})
+    )
+
+
+def _deserialize_quantizer(path: Path, device: torch.device):
+    path = Path(path)
+    qmeta = json.loads((path / "pq_build_parameters.json").read_text())
+    pqp = pq_build_params_from_dict(qmeta["pq_params"])
+    if qmeta.get("quantizer_kind") == "subspace":
+        books = _read_array(path / "codebooks", "float32", tuple(qmeta["codebooks_shape"]), device)
+        return SubspaceQuantizer(books, Metric(qmeta["metric"]), pqp)
+    return HnswQuantizer(deserialize_hnsw(path, device=device), qmeta["nsub"], pqp)
+
+
+def serialize_quantized_hnsw(q: QuantizedHnsw, path: Union[str, Path]) -> None:
+    """Nested layout: quantizer/, hnsw/, comparator/ (reference:
+    src/pq.rs:433-452)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    _serialize_quantizer(q.quantizer, path / "quantizer")
+    serialize_hnsw(q.hnsw, path / "hnsw")
+    serialize_source(q.full_source, path / "comparator")
+
+
+def deserialize_quantized_hnsw(path: Union[str, Path], device=None) -> QuantizedHnsw:
+    """A quantized index read onto ``device`` (``None``: the card)."""
+    path = Path(path)
+    device = _device.resolve_device(device)
+    quantizer = _deserialize_quantizer(path / "quantizer", device)
+    hnsw = deserialize_hnsw(path / "hnsw", device=device)
+    full_source = deserialize_source(path / "comparator", device)
+    return QuantizedHnsw(quantizer, hnsw, full_source)

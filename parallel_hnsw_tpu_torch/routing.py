@@ -32,6 +32,7 @@ from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE
 from parallel_hnsw_tpu_torch.graph import (
     DenseSource,
     Layer,
+    PqSource,
     Source,
     node_to_vec,
     source_effective_width,
@@ -130,13 +131,13 @@ def exact_rerank(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-precision rescore + (dist, id) resort of candidate queues.
 
-    Shared by routed graph search and, later, the PQ pipeline (reference
-    rerank contract: src/pq.rs:354-363).  Blocked over queries so the
-    gathered ``[qb, ef, width]`` block honors the memory budget.  Only
-    device sources are taken: the JAX package's host-source branch waits for
+    Shared by routed graph search and the PQ pipeline (reference rerank
+    contract: src/pq.rs:354-363).  Blocked over queries so the gathered
+    ``[qb, ef, width]`` block honors the memory budget.  Only device sources
+    (dense or PQ) are taken: the JAX package's host-source branch waits for
     the out-of-core source.
     """
-    if not isinstance(source, DenseSource):
+    if not isinstance(source, (DenseSource, PqSource)):
         raise NotImplementedError(
             f"exact_rerank takes a device source, got {type(source).__name__}: "
             "host (out-of-core) sources are not ported yet"

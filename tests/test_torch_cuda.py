@@ -571,3 +571,112 @@ def test_selfsim_and_resume_on_device(device, small_index, tmp_path):
     assert again.layers[0].nodes.is_cuda
     for a, b in zip(first.layers, again.layers):
         assert torch.equal(a.nodes, b.nodes)
+
+
+# -- product quantization on the card ----------------------------------------
+
+
+@pytest.mark.parametrize("c", [4096, 65_535])
+@pytest.mark.parametrize("d", [4, 8, 16, 96])
+def test_binned_scan_at_pq_widths(device, d, c):
+    """The fast binned scan at sub-vector widths (D = 4 is padded to 8) over
+    a codebook of 4096 or 65,535 rows (a partial last tile), tile_c 4096 as
+    the quantize route calls it; and at D = 96, the per-subspace index's flat
+    scan over its decoded codes."""
+    x, y = _unit_pair(300, c, d, device, seed=d)
+    for metric in (Metric.SQUARED_EUCLIDEAN, Metric.EUCLIDEAN, Metric.NORMALIZED_COSINE):
+        got = cuda_scan.binned_scan(x, y, metric, tile_c=4096, exact=False)
+        torch.cuda.synchronize()
+        want = cuda_scan.plain_binned_scan(x, y, metric, tile_c=4096, exact=False)
+        assert got[0].shape == (300, -(-c // 4096) * 128)
+        _assert_bins_agree(got, want, x, y, metric, exact=False)
+
+
+def test_gather_distance_at_pq_width(device):
+    """D = 1536, the code graph's hop on densified codes.  Unit rows: two
+    summation orders of 1536 terms whose partial sums stay within [0, 4]
+    differ by ~sqrt(1536) ulps of 4 (1.9e-5), so 4e-5."""
+    queries, table, idx = _hop_operands(227, 5000, 1, 192, 1536, torch.float32, device, seed=9)
+    for metric in Metric:
+        got = cuda_gather.gather_distance(queries, table, idx, metric)
+        torch.cuda.synchronize()
+        want = cuda_gather.plain_gather_distance(queries, table, idx, metric)
+        torch.testing.assert_close(got, want, atol=4e-5, rtol=0)
+
+
+def test_exact_kernel_at_pq_width(device):
+    """D = 1536, the code graph's exact seeds and relinks on densified codes
+    (the fast mode at this width is in test_fast_kernel_takes_wide_rows).
+    Unit rows, the diagonal included: within ~sqrt(1536) ulps of 4 (4e-5, as
+    the hop above).  Euclidean is left out: at distance 0 its root turns an
+    ulp of the square into ~5e-4."""
+    x, y = _unit_pair(300, 2000, 1536, device, seed=12)
+    y[:300] = x
+    for metric in (m for m in Metric if m is not Metric.EUCLIDEAN):
+        got = cuda_distance.cuda_pairwise_distance(x, y, metric, exact=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, pairwise_distance(x, y, metric), atol=4e-5, rtol=0)
+
+
+def test_quantize_binned_matches_the_exact_argmin(device):
+    from parallel_hnsw_tpu_torch.pq import quantize_binned
+
+    rng = np.random.default_rng(9)
+    subs = torch.from_numpy(rng.normal(size=(20_000, 16)).astype(np.float32)).to(device)
+    cents = torch.from_numpy(rng.normal(size=(65_535, 16)).astype(np.float32)).to(device)
+    before = dict(cuda_scan.LAUNCHES)
+    fast = quantize_binned(subs, cents, Metric.EUCLIDEAN, block=8192)
+    assert cuda_scan.LAUNCHES["binned"] == before["binned"] + 3
+    exact = analysis.blocked_topk_pairwise(subs, cents, Metric.EUCLIDEAN, 1)[0][:, 0]
+    assert fast.dtype == torch.int32 and float((fast == exact).float().mean()) >= 0.999
+
+
+def test_uint16_codes_reconstruct_through_the_card(device):
+    """uint16 codes (through 65,535) reconstruct on the card, through the row
+    gather kernel, as on the CPU, for both codebook kinds."""
+    from parallel_hnsw_tpu_torch.graph import PqSource, narrow_codes, reconstruct, source_get
+
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 65_536, (3000, 12)).astype(np.int32)
+    codes[0] = 65_535
+    codes16 = narrow_codes(torch.from_numpy(codes))
+    assert codes16.dtype == torch.uint16
+    on_card = codes16.view(torch.int16).to(device).view(torch.uint16)
+    for book in (rng.normal(size=(65_536, 4)), rng.normal(size=(12, 65_536, 2))):
+        book = torch.from_numpy(book.astype(np.float32))
+        want = reconstruct(book, codes16)
+        before = cuda_gather.LAUNCHES["row_gather"]
+        got = reconstruct(book.to(device), on_card)
+        assert cuda_gather.LAUNCHES["row_gather"] == before + 1
+        assert torch.equal(got.cpu(), want)
+        src = PqSource(codes=on_card, codebook=book.to(device))
+        ids = torch.tensor([0, 2999, 7, 7, -5, 1 << 30], dtype=torch.int32)
+        assert torch.equal(source_get(src, ids.to(device)).cpu(),
+                           source_get(PqSource(codes16, book), ids))
+
+
+def test_quantized_index_on_device(device, tmp_path):
+    """A small QuantizedHnsw on the card: both quantizer kinds build, search
+    (code graph and flat scan), and come back from disk onto the card."""
+    from parallel_hnsw_tpu_torch import (
+        PqBuildParams,
+        QuantizedHnsw,
+        deserialize_quantized_hnsw,
+        serialize_quantized_hnsw,
+    )
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    source = DenseSource(torch.from_numpy(x).to(device))
+    for kw in ({"fast_quantize": True}, {"per_subspace": True, "use_kmeans": True}):
+        q = QuantizedHnsw.new(256, source, 4, Metric.EUCLIDEAN, pqp=PqBuildParams(), seed=0, **kw)
+        assert q.hnsw.source.codes.dtype == torch.uint16 and q.hnsw.source.codes.is_cuda
+        ids, _ = q.search(source.vectors[:500], exact_quantize=True)
+        assert float((ids[:, 0] == torch.arange(500, device=device)).float().mean()) >= 0.95
+        f_ids, _ = q.search_exact(source.vectors[:500], k=10)
+        assert float((f_ids[:, 0] == torch.arange(500, device=device)).float().mean()) >= 0.99
+        serialize_quantized_hnsw(q, tmp_path / str(len(kw)))
+        loaded = deserialize_quantized_hnsw(tmp_path / str(len(kw)))
+        assert loaded.hnsw.source.codes.is_cuda
+        assert torch.equal(loaded.search(source.vectors[:100])[0], q.search(source.vectors[:100])[0])

@@ -1,6 +1,6 @@
-"""The port's dense persistence against the JAX package's (mirrors the dense
-cases of tests/test_serialize.py): either package reads what the other wrote,
-and both write the same bytes.  Also where the port's entry points place
+"""The port's persistence against the JAX package's (mirrors the dense and
+quantized cases of tests/test_serialize.py): either package reads what the
+other wrote, and both write the same bytes.  Also where the port's entry points place
 their tensors when no device is named."""
 
 import json
@@ -12,11 +12,26 @@ import torch
 
 from parallel_hnsw_tpu import io as jio
 from parallel_hnsw_tpu.graph import DenseSource as JDenseSource, Layer as JLayer
+from parallel_hnsw_tpu.graph import PqSource as JPqSource
 from parallel_hnsw_tpu.index import Hnsw as JHnsw
 from parallel_hnsw_tpu.params import build_params_from_dict as j_build_params_from_dict
-from parallel_hnsw_tpu_torch import BuildParams, DenseSource, Hnsw, Metric, OptimizationParams
+from parallel_hnsw_tpu_torch import (
+    BuildParams,
+    DenseSource,
+    Hnsw,
+    Metric,
+    OptimizationParams,
+    PqBuildParams,
+    PqSource,
+    QuantizedHnsw,
+)
 from parallel_hnsw_tpu_torch import io as tio
-from parallel_hnsw_tpu_torch.convert import hnsw_from_numpy, hnsw_to_numpy
+from parallel_hnsw_tpu_torch.convert import (
+    hnsw_from_numpy,
+    hnsw_to_numpy,
+    quantized_from_numpy,
+    quantized_to_numpy,
+)
 from parallel_hnsw_tpu_torch.params import params_to_dict
 from parallel_hnsw_tpu_torch.utils import data as tdata
 from parallel_hnsw_tpu_torch.utils import device as tdevice
@@ -222,15 +237,111 @@ def test_generate_rejects_a_checkpoint_larger_than_the_corpus(resume_case):
 
 
 def test_pq_and_unknown_sources_are_refused(tmp_path):
+    """A PQ source whose codes are of no type the format knows, an unknown
+    source kind and an unknown source type are refused."""
     (tmp_path / "pq").mkdir()
-    (tmp_path / "pq" / "meta").write_text(json.dumps({"kind": "pq", "count": 3, "nsub": 2}))
-    with pytest.raises(tio.SerializationError, match="PQ"):
+    (tmp_path / "pq" / "meta").write_text(json.dumps(
+        {"kind": "pq", "count": 3, "nsub": 2, "code_dtype": "float16", "codebook_shape": [4, 2]}))
+    with pytest.raises(tio.SerializationError, match="PQ code dtype"):
         tio.deserialize_source(tmp_path / "pq", device="cpu")
     (tmp_path / "pq" / "meta").write_text(json.dumps({"kind": "sparse"}))
     with pytest.raises(tio.SerializationError, match="unknown source kind"):
         tio.deserialize_source(tmp_path / "pq", device="cpu")
     with pytest.raises(tio.SerializationError, match="unknown source type"):
         tio.serialize_source(object(), tmp_path / "other")
+
+
+@pytest.mark.parametrize("code_dtype", ["uint16", "int32"])
+@pytest.mark.parametrize("kind", ["shared", "per_subspace"])
+def test_pq_source_round_trip(tmp_path, code_dtype, kind):
+    """A PqSource goes to disk and back with its codes' type; the JAX package
+    writes the same bytes and reads the same arrays."""
+    rng = np.random.default_rng(3)
+    book = rng.normal(size=(40, 4) if kind == "shared" else (3, 40, 4)).astype(np.float32)
+    codes = rng.integers(0, 40, (25, 3)).astype(code_dtype)
+    t_codes = torch.from_numpy(codes.view(np.int16)).view(torch.uint16) if code_dtype == "uint16" \
+        else torch.from_numpy(codes)
+    src = PqSource(codes=t_codes, codebook=torch.from_numpy(book))
+    tio.serialize_source(src, tmp_path / "t")
+    back = tio.deserialize_source(tmp_path / "t", device="cpu")
+    assert isinstance(back, PqSource) and back.codes.dtype == src.codes.dtype
+    assert torch.equal(back.codes.view(torch.int16) if code_dtype == "uint16" else back.codes,
+                       src.codes.view(torch.int16) if code_dtype == "uint16" else src.codes)
+    assert torch.equal(back.codebook, src.codebook)
+    jio.serialize_source(JPqSource(codes=jnp.asarray(codes), codebook=jnp.asarray(book)),
+                         tmp_path / "j")
+    for name in ("meta", "codes", "codebook"):
+        assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes(), name
+    j_back = jio.deserialize_source(tmp_path / "t")
+    np.testing.assert_array_equal(np.asarray(j_back.codes), codes)
+
+
+@pytest.fixture(scope="module")
+def quantized():
+    """A small quantized index of each quantizer kind, built by the port, and
+    the same index as the JAX package's objects."""
+    from tests.test_torch_pq_index import _jax_from_numpy
+
+    source = tdata.random_unit_corpus(120, 8, device="cpu")
+    bp = BuildParams(order=6, neighborhood_size=4, zero_layer_neighborhood_size=8,
+                     optimization=OptimizationParams(recall_proportion=1.0))
+    pqp = PqBuildParams(centroids=bp, hnsw=bp)
+    out = {}
+    for kind, kw in (("shared", {"exact_quantize": True}),
+                     ("per_subspace", {"per_subspace": True, "use_kmeans": True})):
+        tq = QuantizedHnsw.new(16, source, 2, Metric.EUCLIDEAN, pqp=pqp, seed=1, **kw)
+        out[kind] = tq, _jax_from_numpy(quantized_to_numpy(tq))
+    return out
+
+
+def _assert_same_quantized(a, b):
+    sa, sb = quantized_to_numpy(a), quantized_to_numpy(b)
+    assert sa.keys() == sb.keys()
+    for key, va in sa.items():
+        if key.endswith("layers") and va is not None:
+            for (n1, nb1), (n2, nb2) in zip(va, sb[key]):
+                np.testing.assert_array_equal(n1, n2)
+                np.testing.assert_array_equal(nb1, nb2)
+        elif isinstance(va, np.ndarray):
+            assert va.dtype == sb[key].dtype
+            np.testing.assert_array_equal(va, sb[key])
+        else:
+            assert va == sb[key], key
+
+
+def _tree_bytes(root):
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+@pytest.mark.parametrize("kind", ["shared", "per_subspace"])
+def test_quantized_index_files_are_byte_identical_both_ways(quantized, kind, tmp_path):
+    """Both packages write the same files for one quantized index; each reads
+    what the other wrote, and the port's read-back answers as the original."""
+    tq, jq = quantized[kind]
+    tio.serialize_quantized_hnsw(tq, tmp_path / "t")
+    jio.serialize_quantized_hnsw(jq, tmp_path / "j")
+    t_files, j_files = _tree_bytes(tmp_path / "t"), _tree_bytes(tmp_path / "j")
+    assert t_files.keys() == j_files.keys() and "hnsw/comparator/codes" in t_files
+    for name in t_files:
+        assert t_files[name] == j_files[name], name
+    from_jax = tio.deserialize_quantized_hnsw(tmp_path / "j", device="cpu")
+    _assert_same_quantized(from_jax, tq)
+    _assert_same_quantized(jio.deserialize_quantized_hnsw(tmp_path / "t"), jq)
+    q = tq.full_source.vectors[:20]
+    for a, b in zip(from_jax.search(q), tq.search(q)):
+        assert torch.equal(a, b)
+
+
+def test_quantized_index_lands_on_the_card_by_default(quantized, tmp_path, monkeypatch):
+    tq, _ = quantized["shared"]
+    tio.serialize_quantized_hnsw(tq, tmp_path / "q")
+    monkeypatch.setattr(tdevice, "default_device", lambda: torch.device("meta"))
+    loaded = tio.deserialize_quantized_hnsw(tmp_path / "q")
+    moved = quantized_from_numpy(quantized_to_numpy(tq))
+    for q in (loaded, moved):
+        assert q.hnsw.source.codes.device.type == "meta" and q.full_source.device.type == "meta"
+        assert q.quantizer.centroids.device.type == "meta"
+        assert q.quantizer.hnsw.layers[0].nodes.device.type == "meta"
 
 
 def test_default_device_is_the_card(built, tmp_path, monkeypatch):

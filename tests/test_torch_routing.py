@@ -424,3 +424,29 @@ def test_slab_memory_budget_and_shape_are_enforced(small):
     with pytest.raises(ValueError, match="rebuild the slabs"):
         tsearch.search(small.layers, small.source, small.metric, small.source.vectors[:4],
                        SearchParams(), slabs=[s[:-1] for s in stale])
+
+
+def test_pq_code_graph_with_routed_slabs():
+    """Slabs on the PQ code graph (mirrors
+    tests/test_hop_slabs.py::test_pq_code_graph_with_routed_slabs): routing
+    and slabs run over the densified codes, the rerank over the full
+    vectors; top-1 agrees with the plain code-graph search.  ``exact_rerank``
+    takes the PqSource itself and gives its densified copy's answers."""
+    from parallel_hnsw_tpu_torch import PqBuildParams, PqSource, QuantizedHnsw
+
+    source = random_unit_corpus(800, 32, seed=9, device="cpu")
+    q = QuantizedHnsw.new(64, source, 8, Metric.COSINE, pqp=PqBuildParams(centroids=BP, hnsw=BP),
+                          seed=0, exact_quantize=True)
+    queries = source.vectors[:48]
+    base_ids, _ = q.search(queries)
+    q.enable_routing(dr=None)
+    assert q.hnsw._routing.rows.shape == (800, 32)
+    q.enable_hop_slabs()
+    assert q.hnsw._hop_slabs.routed
+    slab_ids, slab_d = q.search(queries)
+    assert float((base_ids[:, 0] == slab_ids[:, 0]).float().mean()) >= 0.95
+    pq_src = q.hnsw.source
+    assert isinstance(pq_src, PqSource)
+    on_codes = tr.exact_rerank(pq_src, Metric.COSINE, queries, slab_ids)
+    on_dense = tr.exact_rerank(q.hnsw.compute_source, Metric.COSINE, queries, slab_ids)
+    assert torch.equal(on_codes[0], on_dense[0]) and torch.equal(on_codes[1], on_dense[1])
