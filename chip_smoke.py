@@ -95,7 +95,30 @@ Phases, each printed as it ends:
    plain and routed over bf16 slabs (recall within 0.02).  10c: both indexes
    through ``io`` and back (1,000 queries identical), and 10,000 codes of the
    gate searched with ``DENSIFY_BUDGET_BYTES = 0`` against the densified hop
-   (top-1 identical for >= 0.999, distances within 1e-5).
+   (top-1 identical for >= 0.999, distances within 1e-5);
+11. out-of-core sources and the sharded indexes, 4 shards on the one card
+   (a ``Mesh`` that names it four times).  First the kernels at the sharded
+   path's new shapes against their plain versions, timed: the pairwise
+   kernel in both modes at ``[10,000 x 50,000 x 100]`` (one shard's flat
+   scan) and ``gather_distance`` at its in-shard rerank.  11a: ``ShardedHnsw``
+   over phase 5's corpus: build with improve, held-out recall@10 and QPS
+   beside the single index's, both flat scans (recall@10 >= 0.999 / 0.99),
+   stochastic recall, ``improve_index``, and a round trip through ``io``
+   (ids and distances identical).  11b, config 5's code layout out of core:
+   2,097,152 x 768 clustered rows written to a temporary file (6.44 GB) 131,072
+   rows at a time and opened as a ``MemmapSource``; exact ground truth over
+   its chunks; ``ShardedQuantizedHnsw.new`` with 65,535 shared centroids of 8
+   (96 uint16 codes), binned quantize, scan-only; ``search_exact(fast=True)``
+   of 1,024 held-out queries: recall@10 (>= 0.5), QPS, distances equal to f32
+   recomputed from the memmap, the ingest rate (``ooc_ingest_shard``), and peak
+   device memory from the build to the search below the corpus's 6.44 GB; the
+   binned scan at one shard's block ``[1024 x 524,288 x 768]`` and at the
+   quantize block ``[262,144 x 65,535 x 8]``, and ``reconstruct``'s row gather
+   of one shard block (bit for bit); a round trip against the external memmap;
+   then the in-core twin from the same rows: codes byte-identical, the same
+   code scan, and the host rerank of its candidates equal to the card's bit
+   for bit.  11c: an in-core ``ShardedQuantizedHnsw`` with code graphs over
+   10b's corpus and codebooks: code-graph and flat recall@10 beside 10b's.
 
 The second-to-last line is a JSON object describing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -111,6 +134,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -119,6 +143,7 @@ from parallel_hnsw_tpu_torch import (
     BuildParams,
     DenseSource,
     Hnsw,
+    MemmapSource,
     Metric,
     PqBuildParams,
     PqSource,
@@ -126,18 +151,33 @@ from parallel_hnsw_tpu_torch import (
     brute_force_knn,
     deserialize_hnsw,
     deserialize_quantized_hnsw,
+    deserialize_sharded_hnsw,
+    deserialize_sharded_quantized_hnsw,
     fast_flat_knn,
+    open_memmap_source,
     select_scan_mode,
     serialize_hnsw,
     serialize_quantized_hnsw,
+    serialize_sharded_hnsw,
+    serialize_sharded_quantized_hnsw,
 )
 from parallel_hnsw_tpu_torch import analysis
 from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID
-from parallel_hnsw_tpu_torch.graph import narrow_codes, reconstruct, source_get, widen_codes
+from parallel_hnsw_tpu_torch.graph import (
+    host_rows,
+    materialize_source,
+    narrow_codes,
+    reconstruct,
+    source_get,
+    widen_codes,
+)
 from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_gather, cuda_scan
+from parallel_hnsw_tpu_torch.ops.queues import sort_queue
 from parallel_hnsw_tpu_torch.optimize import link_layer_to_better_neighbors
+from parallel_hnsw_tpu_torch.parallel import Mesh, ShardedHnsw, ShardedQuantizedHnsw
 from parallel_hnsw_tpu_torch.pq import adc_lut, adc_scan, quantize_binned
+from parallel_hnsw_tpu_torch.routing import exact_rerank
 from parallel_hnsw_tpu_torch.ops.distance import (
     batched_distance,
     pairwise_distance,
@@ -1601,6 +1641,407 @@ def pq_rest_phase(gate: QuantizedHnsw, c4: QuantizedHnsw, gate_vecs: torch.Tenso
     return out
 
 
+# -- phase 11: out-of-core sources and the sharded indexes --------------------
+
+# The shards of phase 11: four on the one card (a Mesh that names it 4 times).
+SHARDS = 4
+# 11b, config 5 (BASELINE.md:30, BENCH_NOTES.md:519-556; scripts/ingest_bench.py
+# is the JAX run of its ingest): 768-d unit embeddings, 96 uint16 codes of 8
+# values over one shared 65,535 x 8 codebook, binned quantize, scan-only
+# shards served by search_exact, the f32 corpus on disk and read back only for
+# the final rerank.  Cuts of scale: 2,097,152 rows of 100M, 4 shards on one
+# card (16 chips in config 5), 6.44 GB on disk (307 GB).  The rows follow
+# clustered_corpus's recipe (10b), drawn and written 131,072 rows at a time.
+# Euclidean: on unit rows it ranks as (normalized) cosine does, and it makes
+# the sub-vector quantize a nearest-centroid assignment; the JAX scripts' normalized
+# cosine assigns sub-vectors by largest dot and builds the centroid graph under
+# a metric that cannot tell them apart (PERF.md, Findings).
+C5_COUNT, C5_DIM, C5_CENTROIDS, C5_DSUB = 1 << 21, 768, 65_535, 8
+C5_QUERIES, C5_WRITE_ROWS, C5_SEED = 1024, 131_072, 5
+C5_METRIC = Metric.EUCLIDEAN
+# Catches a broken path, not a target: recall@10 against the exact f32 scan
+# was 0.62061 out of core and 0.85879 in core on an NVIDIA H100 80GB HBM3 at
+# 700 W (the two modes rerank 40 and 4 x 40 candidates)
+C5_RECALL_FLOOR = 0.5
+# The rerank recomputes f32 distances of unit rows of D = 768 (partial sums
+# within [-1, 1]; two summation orders ~sqrt(768) half-ulps of 1 apart)
+C5_DIST_ATOL = 1e-5
+SHARDED_RECALL_FLOOR = 0.80  # phase 6's floor for the single index
+
+
+def write_clustered_corpus(path: str, count: int, dim: int, seed: int) -> np.ndarray:
+    """clustered_corpus's recipe (1024 unit centers, each row a center plus
+    0.35 N(0, 1) noise, normalized) drawn with numpy in chunks of
+    ``C5_WRITE_ROWS`` rows, each from its own stream of ``seed``, on one host
+    thread per core, and appended to the raw f32 file ``path`` in order: host
+    memory holds one chunk a thread, never the corpus.  Returns
+    ``C5_QUERIES`` held-out rows from a stream of their own."""
+    n_chunks = -(-count // C5_WRITE_ROWS)
+    streams = np.random.SeedSequence(seed).spawn(n_chunks + 2)
+    rng = np.random.default_rng(streams[0])
+    centers = rng.standard_normal((PQ_C4_CENTERS, dim)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+
+    def draw(i: int, n: int) -> np.ndarray:
+        rng = np.random.default_rng(streams[1 + i])
+        pts = centers[rng.integers(0, PQ_C4_CENTERS, n)]
+        pts += PQ_C4_NOISE * rng.standard_normal((n, dim), dtype=np.float32)
+        pts /= np.sqrt(np.einsum("ij,ij->i", pts, pts))[:, None]
+        return pts
+
+    sizes = [min(C5_WRITE_ROWS, count - i * C5_WRITE_ROWS) for i in range(n_chunks)]
+    workers = os.cpu_count() or 1
+    with open(path, "wb") as f, ThreadPoolExecutor(max_workers=workers) as ex:
+        for wave in range(0, n_chunks, workers):
+            ids = range(wave, min(wave + workers, n_chunks))
+            for pts in ex.map(draw, ids, [sizes[i] for i in ids]):
+                pts.tofile(f)
+    return draw(n_chunks, C5_QUERIES)
+
+
+def memmap_ground_truth(mm: MemmapSource, queries: torch.Tensor, metric: Metric, k: int):
+    """Exact f32 top-``k`` over the memmap's chunks, each moved to the card
+    and scanned by the exact pairwise kernel."""
+    best_i = best_d = None
+    for n, chunk in enumerate(mm.chunks(C5_WRITE_ROWS)):
+        rows = host_rows(chunk, queries.device)
+        ids, d = blocked_topk_pairwise(queries, rows, metric, k)
+        ids = ids + n * C5_WRITE_ROWS
+        if best_i is not None:
+            ids, d = sort_queue(torch.cat([best_i, ids], -1), torch.cat([best_d, d], -1))
+        best_i, best_d = ids[:, :k], d[:, :k]
+    return best_i, best_d
+
+
+def _true_distance_err(mm: MemmapSource, queries, ids, dists, metric) -> float:
+    """How far returned distances are from f32 distances recomputed from
+    the memmap's rows."""
+    want = batched_distance(queries, source_get(mm, ids, device=queries.device), metric)
+    return float((dists - want).abs().max())
+
+
+def _same_answer(i1, d1, i2, d2) -> torch.Tensor:
+    """Per query: the same ids as sets, at equal distance (within
+    ``C5_DIST_ATOL``)."""
+    same_d = (d1 - d2).abs().max(dim=1).values <= C5_DIST_ATOL
+    same_i = (torch.sort(i1, dim=1).values == torch.sort(i2, dim=1).values).all(dim=1)
+    return same_d & same_i
+
+
+def sharded_kernel_checks(device, vecs: torch.Tensor, queries: torch.Tensor) -> dict:
+    """11a's new launch shapes: the pairwise kernel (both modes) as
+    ``_shard_flat_scan`` calls it below 200k rows a shard (all the queries
+    against one 50,000-row shard), and gather_distance at the in-shard
+    rerank (each query's 40 survivors); against the plain versions, timed
+    beside them, a library call and the bound."""
+    metric = Metric.NORMALIZED_COSINE
+    y = vecs[: vecs.shape[0] // SHARDS].contiguous()
+    x = queries.contiguous()
+    q, c, d = x.shape[0], y.shape[0], y.shape[1]
+    out = {}
+    for exact in (True, False):
+        xo = cuda_distance.prepare_operand(x, metric, exact=exact)
+        yo = cuda_distance.prepare_operand(y, metric, exact=exact)
+        kern = lambda: cuda_distance.cuda_pairwise_distance(xo, yo, metric, exact=exact)
+        plain = (lambda a=x: pairwise_distance(a, y, metric)) if exact else (
+            lambda a=x: pairwise_distance_bf16_dots(a, y, metric))
+        head = SCAN_CHECK_ROWS
+        err = float((kern()[:head] - plain(x[:head])).abs().max())
+        atol = BLOCK_ATOL if exact else FAST_BLOCK_ATOL
+        assert err <= atol, f"pairwise exact={exact} at the shard scan disagrees: {err}"
+        if exact:
+            half = torch.full((), 0.5, device=device)
+            library = lambda: torch.addmm(half, x, y.T, beta=1.0, alpha=-0.5)
+        else:
+            xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+            library = lambda: torch.matmul(xb, yb.T)
+        p1, k1, k2 = _median_ms(plain, reps=3), _median_ms(kern, reps=5), _median_ms(kern, reps=5)
+        lib = _median_ms(library, reps=5)
+        elem = 4.0 if exact else 2.0
+        bound = _bound(2.0 * q * c * d, PEAK_FP32_FLOPS if exact else PEAK_BF16_FLOPS,
+                       elem * (q + c) * d + 4.0 * q * c)
+        ms = min(k1, k2)
+        print(f"pairwise_distance exact={exact} at 11a's shard scan [{q} x {c} x {d}]: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, library {lib:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bound_ms'] / ms:.1%}); "
+              f"max_abs_err {err:.3e}")
+        out["exact" if exact else "fast"] = {"shape": f"{q} x {c} x {d}", "ms": ms, "plain_ms": p1,
+                                             "library_ms": lib, "max_abs_err": err, **bound}
+    gen = torch.Generator(device=device).manual_seed(21)
+    idx = torch.randint(0, c, (q, 40), generator=gen, device=device, dtype=torch.int32)
+    fused = lambda: cuda_gather.cuda_gather_distance(x, y, idx, metric)
+    plain = lambda: cuda_gather.plain_gather_distance(x, y, idx, metric)
+    err = float((fused() - plain()).abs().max())
+    assert err <= GATHER_DISTANCE_ATOL, f"gather_distance at the shard rerank disagrees: {err}"
+    k1, p1, k2 = _median_ms(fused), _median_ms(plain, reps=3), _median_ms(fused)
+    rows_read = float(torch.unique(idx).numel())
+    bound = _bound(3.0 * idx.numel() * d, PEAK_FP32_FLOPS,
+                   4.0 * (2 * idx.numel() + q * d + rows_read * d))
+    ms = min(k1, k2)
+    print(f"gather_distance at 11a's in-shard rerank ({q} x 40 over [{c} x {d}]): kernel "
+          f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({bound['bound_ms'] / ms:.1%}); max_abs_err {err:.3e}")
+    out["gather_distance"] = {"shape": f"{q} x 40 over [{c} x {d}]", "ms": ms, "plain_ms": p1,
+                              "library_ms": None, "max_abs_err": err, **bound}
+    return out
+
+
+def sharded_dense_phase(device, source: DenseSource, queries: torch.Tensor, gt_ids: torch.Tensor,
+                        single: dict) -> tuple:
+    """11a: a 4-shard ``ShardedHnsw`` over phase 5's corpus on the card:
+    build with improve, search against phase 6's ground truth beside the
+    single index, both flat scans, stochastic recall, improve_index, and a
+    round trip through ``io``.  Returns the launches of the path (the build,
+    one search, one scan of each mode) and the numbers to keep."""
+    metric = Metric.NORMALIZED_COSINE
+    mesh = Mesh([device] * SHARDS)
+    tb = time.perf_counter()
+    sh, build_launches = _counted(lambda: ShardedHnsw.generate(
+        source, mesh, BuildParams(), metric, seed=0, improve=True))
+    build_s = time.perf_counter() - tb
+    print(f"11a build ({SHARDS} shards of {source.count // SHARDS} x {source.dim} on {device}): "
+          f"{build_s:.3f} s; levels {[tuple(l.nodes.shape) for l in sh.layers_stacked]}; "
+          f"launches {build_launches}")
+    (ids, dists), search_launches = _counted(lambda: sh.search(queries, k=10))
+    recall = _recall_at_10(ids, gt_ids)
+    qps = _qps("11a ShardedHnsw.search(k=10)", lambda: sh.search(queries, k=10), queries.shape[0])
+    print(f"11a search: held-out recall@10 {recall:.5f} at {qps:.1f} QPS; the single index "
+          f"{single['recall']:.5f} at {single['qps']:.1f} QPS (phase 6); launches {search_launches}")
+    assert ids.device == mesh.first and bool(torch.isfinite(dists).all())
+    assert recall >= SHARDED_RECALL_FLOOR, f"sharded recall@10 {recall}"
+    flat = {}
+    scan_launches = {}
+    for fast in (False, True):
+        (f_ids, _), scan_launches[fast] = _counted(
+            lambda: sh.search_exact(queries, k=10, fast=fast))
+        f_recall = _recall_at_10(f_ids, gt_ids)
+        f_qps = _qps(f"11a ShardedHnsw.search_exact(k=10, fast={fast})",
+                     lambda: sh.search_exact(queries, k=10, fast=fast), queries.shape[0])
+        print(f"11a search_exact(fast={fast}): recall@10 {f_recall:.5f}; launches "
+              f"{scan_launches[fast]}")
+        assert f_recall >= (0.999 if not fast else 0.99), f"sharded flat recall {f_recall}"
+        flat[fast] = {"recall_at_10": f_recall, "qps": f_qps}
+    stochastic = sh.stochastic_recall()
+    ti = time.perf_counter()
+    improved = sh.improve_index()
+    improve_s = time.perf_counter() - ti
+    print(f"11a stochastic_recall {stochastic}; improve_index {improved} in {improve_s:.3f} s")
+    assert stochastic >= STOCHASTIC_RECALL_FLOOR, f"sharded stochastic recall {stochastic}"
+    i1, d1 = sh.search(queries[:PERSIST_QUERIES], k=10)
+    tmp = tempfile.mkdtemp(prefix="hnsw_smoke_sharded_")
+    try:
+        serialize_sharded_hnsw(sh, tmp)
+        back = deserialize_sharded_hnsw(tmp, mesh)
+    finally:
+        shutil.rmtree(tmp)
+    i2, d2 = back.search(queries[:PERSIST_QUERIES], k=10)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2), "the reloaded sharded index answers differently"
+    print(f"11a persistence: {PERSIST_QUERIES} queries identical in ids and distances")
+    path = {k: build_launches[k] + search_launches[k] + scan_launches[False][k]
+            + scan_launches[True][k] for k in build_launches}
+    return path, {"build_s": build_s, "recall_at_10": recall, "qps": qps,
+                  "single_recall_at_10": single["recall"], "single_qps": single["qps"],
+                  "exact_scan": flat[False], "fast_scan": flat[True],
+                  "stochastic_recall": stochastic, "improve_index": improved,
+                  "improve_s": improve_s}
+
+
+def _ingest_summary() -> dict:
+    spans = [e for e in TRACER.events if e.name == "ooc_ingest_shard"]
+    secs = sum(e.seconds for e in spans)
+    rows = sum(e.counters["rows"] for e in spans)
+    nbytes = sum(e.counters["bytes"] for e in spans)
+    return {"shards": len(spans), "seconds": secs, "rows": rows, "bytes": nbytes,
+            "rows_per_s": rows / secs, "gb_per_s": nbytes / secs / 1e9}
+
+
+def config5_kernel_checks(ooc: ShardedQuantizedHnsw, mm: MemmapSource,
+                          queries: torch.Tensor) -> dict:
+    """11b's new launch shapes against the plain versions, timed: the binned
+    scan at one shard's block ``[1024 x 524,288 x 768]`` and at the quantize
+    block ``[262,144 x 65,535 x 8]``, and the row gather of ``reconstruct``
+    over that block (50,331,648 centroid rows of 32 bytes, bit for bit).
+    The quantize block's bins are held by value in squared euclidean, as in
+    phase 10 (sub-vectors that are centroids sit at distance ~0, where the
+    root turns an ulp into ~3e-5), its columns in euclidean."""
+    local = ooc.sharded.shard_source(0)
+    block = reconstruct(local.codebook, local.codes)
+    out = {"binned_scan": {
+        "shard_block": _pq_binned_case("11b's shard scan block", cuda_scan.scan_operand(queries),
+                                       cuda_scan.scan_operand(block), C5_METRIC, C5_METRIC)}}
+    del block
+    subs = host_rows(next(mm.chunks(PQ_QUANTIZE_BLOCK // (C5_DIM // C5_DSUB) + 1)),
+                     queries.device).reshape(-1, C5_DSUB)[:PQ_QUANTIZE_BLOCK]
+    out["binned_scan"]["quantize_block"] = _pq_binned_case(
+        "11b's quantize block", subs.to(torch.bfloat16), local.codebook.to(torch.bfloat16),
+        C5_METRIC, Metric.SQUARED_EUCLIDEAN)
+    idx = widen_codes(local.codes).reshape(-1)
+    table = local.codebook.contiguous()
+    assert torch.equal(cuda_gather.cuda_row_gather(table, idx),
+                       cuda_gather.plain_row_gather(table, idx)), "reconstruct's gather differs"
+    k1 = _median_ms(lambda: cuda_gather.cuda_row_gather(table, idx), reps=5)
+    p1 = _median_ms(lambda: cuda_gather.plain_row_gather(table, idx), reps=3)
+    lib = _median_ms(lambda: torch.index_select(table, 0, idx), reps=5)
+    k2 = _median_ms(lambda: cuda_gather.cuda_row_gather(table, idx), reps=5)
+    r = float(idx.numel())
+    bound = _bound(0.0, PEAK_FP32_FLOPS, 4.0 * r + 32.0 * r + table.numel() * 4.0)
+    ms = min(k1, k2)
+    print(f"row_gather as 11b's reconstruct uses it: {idx.numel()} centroid rows of 32 bytes from "
+          f"[{table.shape[0]} x {table.shape[1]}] f32, bit-identical to the plain version: kernel "
+          f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} ms, torch.index_select {lib:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bound_ms'] / ms:.1%})")
+    out["row_gather"] = {"shape": f"R={idx.numel()}, table [{table.shape[0]} x {table.shape[1]}] f32",
+                         "ms": ms, "plain_ms": p1, "library_ms": lib, "max_abs_err": 0.0, **bound}
+    return out
+
+
+def config5_phase(device) -> tuple:
+    """11b: the out-of-core ShardedQuantizedHnsw at config 5's code layout.
+    Returns the launches of the path (the build and one search), the kernel
+    checks at its shapes and the numbers to keep."""
+    metric = C5_METRIC
+    mesh = Mesh([device] * SHARDS)
+    tmp = tempfile.mkdtemp(prefix="hnsw_smoke_c5_")
+    try:
+        path = os.path.join(tmp, "corpus.f32")
+        tw = time.perf_counter()
+        held_out = write_clustered_corpus(path, C5_COUNT, C5_DIM, C5_SEED)
+        write_s = time.perf_counter() - tw
+        mm = open_memmap_source(path, C5_DIM)
+        corpus_bytes = mm.count * mm.dim * 4
+        assert mm.count == C5_COUNT and os.path.getsize(path) == corpus_bytes
+        queries = torch.from_numpy(held_out).to(device)
+        gt_ids, _ = memmap_ground_truth(mm, queries, metric, 10)
+        print(f"11b corpus: {C5_COUNT} x {C5_DIM} f32 ({corpus_bytes / 1e9:.2f} GB) written in "
+              f"{write_s:.3f} s; exact ground truth of {C5_QUERIES} held-out queries over its "
+              f"chunks")
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        TRACER.events.clear()
+        tb = time.perf_counter()
+        ooc, build_launches = _counted(lambda: ShardedQuantizedHnsw.new(
+            C5_CENTROIDS, mm, C5_DSUB, metric, mesh, pqp=PqBuildParams(), seed=0,
+            fast_quantize=True, build_graphs=False))
+        build_s = time.perf_counter() - tb
+        ingest = _ingest_summary()
+        (ids, dists), search_launches = _counted(lambda: ooc.search_exact(queries, k=10, fast=True))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"11b out-of-core build ({SHARDS} scan-only shards of {C5_COUNT // SHARDS} rows, "
+              f"{C5_DIM // C5_DSUB} uint16 codes of {C5_DSUB} over {C5_CENTROIDS} centroids): "
+              f"{build_s:.3f} s; ingest {ingest['seconds']:.3f} s for {ingest['rows']} rows, "
+              f"{ingest['rows_per_s']:.1f} rows/s, {ingest['gb_per_s']:.3f} GB/s from the memmap; "
+              f"launches {build_launches}")
+        print(f"11b peak device memory from the build to the search: {peak / 1e9:.3f} GB "
+              f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held before), "
+              f"below the corpus's {corpus_bytes / 1e9:.2f} GB")
+        assert ooc.full_stacked is None and ooc.full_host is mm
+        for s in range(SHARDS):
+            codes = ooc.sharded.shard_source(s).codes
+            assert codes.device == mesh.first and codes.dtype == torch.uint16
+            assert tuple(codes.shape) == (C5_COUNT // SHARDS, C5_DIM // C5_DSUB)
+        assert peak < corpus_bytes, f"out-of-core peak {peak} reaches the corpus's {corpus_bytes}"
+        assert build_launches["binned_scan"] > 0 and search_launches["binned_scan"] > 0
+
+        recall = _recall_at_10(ids, gt_ids)
+        dist_err = _true_distance_err(mm, queries, ids, dists, metric)
+        qps = _qps("11b out-of-core search_exact(k=10, fast=True)",
+                   lambda: ooc.search_exact(queries, k=10, fast=True), C5_QUERIES)
+        print(f"11b out-of-core search_exact: recall@10 {recall:.5f} against the exact f32 scan "
+              f"(floor {C5_RECALL_FLOOR}); distances within {dist_err:.3e} of f32 recomputed from "
+              f"the memmap; launches {search_launches}")
+        assert dist_err <= C5_DIST_ATOL, f"out-of-core distances are not the f32 ones: {dist_err}"
+        assert recall >= C5_RECALL_FLOOR, f"out-of-core recall@10 {recall}"
+
+        kernels = config5_kernel_checks(ooc, mm, queries)
+
+        # persistence against the external memmap
+        pdir = os.path.join(tmp, "index")
+        serialize_sharded_quantized_hnsw(ooc, pdir)
+        back = deserialize_sharded_quantized_hnsw(pdir, mesh, full_source=mm)
+        b_ids, b_d = back.search_exact(queries, k=10, fast=True)
+        assert torch.equal(b_ids, ids) and torch.equal(b_d, dists), "the reloaded index differs"
+        del back
+        print(f"11b persistence against the external memmap: {C5_QUERIES} queries identical")
+
+        # the in-core twin from the same rows, full_stacked on the card.  The
+        # two modes rerank different candidates (in core each shard's top
+        # k * oversample before the merge, out of core the merged top
+        # k * oversample), so their answers are held where they must agree:
+        # the codes, the code scan, and the rerank of the same candidates by
+        # the host gather and by the card's
+        full = materialize_source(mm, block=C5_WRITE_ROWS, device=device)
+        inc = ShardedQuantizedHnsw.new(
+            C5_CENTROIDS, DenseSource(vectors=full), C5_DSUB, metric, mesh, pqp=PqBuildParams(),
+            seed=0, fast_quantize=True, build_graphs=False)
+        same_codes = all(_same_codes(inc.sharded.shard_source(s).codes,
+                                     ooc.sharded.shard_source(s).codes) for s in range(SHARDS))
+        assert same_codes, "in-core codes differ from the out-of-core ones"
+        cand, cand_d = ooc.sharded.search_exact(queries, k=40, fast=True)
+        in_cand, in_cand_d = inc.sharded.search_exact(queries, k=40, fast=True)
+        assert torch.equal(cand, in_cand) and torch.equal(cand_d, in_cand_d), "code scans differ"
+        h_ids, h_d = exact_rerank(mm, metric, queries, cand)
+        d_ids, d_d = exact_rerank(DenseSource(vectors=full), metric, queries, cand)
+        assert torch.equal(h_ids, d_ids) and torch.equal(h_d, d_d), "host and card reranks differ"
+        assert torch.equal(h_ids[:, :10], ids) and torch.equal(h_d[:, :10], dists)
+        del full
+        i_in, d_in = inc.search_exact(queries, k=10, fast=True)
+        in_recall = _recall_at_10(i_in, gt_ids)
+        in_err = _true_distance_err(mm, queries, i_in, d_in, metric)
+        agree = float(_same_answer(i_in, d_in, ids, dists).float().mean())
+        overlap = _recall_at_10(i_in, ids)
+        print(f"11b in-core twin: codes byte-identical to the out-of-core ones, the same code "
+              f"scan, and the host rerank of its candidates equals the card's bit for bit; its "
+              f"search_exact recall@10 {in_recall:.5f} (distances within {in_err:.3e} of f32); "
+              f"top-10 overlap with the out-of-core answer {overlap:.5f}, the same ids as sets "
+              f"at equal distance for {agree:.5f} of the queries")
+        assert in_err <= C5_DIST_ATOL and in_recall >= C5_RECALL_FLOOR
+        del inc
+    finally:
+        shutil.rmtree(tmp)
+    path = {k: build_launches[k] + search_launches[k] for k in build_launches}
+    return path, kernels, {"write_s": write_s, "build_s": build_s, "ingest": ingest,
+                           "peak_gb": peak / 1e9, "peak_above_base_gb": (peak - base) / 1e9,
+                           "corpus_gb": corpus_bytes / 1e9, "recall_at_10": recall, "qps": qps,
+                           "in_core_recall_at_10": in_recall, "in_core_overlap_at_10": overlap,
+                           "in_core_same_answer": agree}
+
+
+def sharded_pq_phase(device, vecs: torch.Tensor, c4: dict) -> tuple:
+    """11c: an in-core ShardedQuantizedHnsw with code graphs on 10b's corpus
+    (per-subspace k-means codebooks of 4096 x 4) over 4 shards: the code
+    graphs' search with the in-shard rerank and the flat scan, recall@10
+    beside 10b's."""
+    metric = Metric.NORMALIZED_COSINE
+    source, queries = DenseSource(vectors=vecs[:PQ_C4_COUNT]), vecs[PQ_C4_COUNT:]
+    mesh = Mesh([device] * SHARDS)
+    tb = time.perf_counter()
+    sq, build_launches = _counted(lambda: ShardedQuantizedHnsw.new(
+        PQ_C4_CENTROIDS, source, PQ_C4_DSUB, metric, mesh, pqp=PqBuildParams(), seed=0,
+        per_subspace=True, use_kmeans=True, fast_quantize=True))
+    build_s = time.perf_counter() - tb
+    gt_ids, _ = brute_force_knn(source, queries, metric, 10)
+    (ids, _), search_launches = _counted(lambda: sq.search(queries, k=10))
+    recall = _recall_at_10(ids, gt_ids)
+    qps = _qps("11c ShardedQuantizedHnsw.search(k=10)", lambda: sq.search(queries, k=10),
+               PQ_C4_QUERIES)
+    (f_ids, _), flat_launches = _counted(
+        lambda: sq.search_exact(queries, k=10, oversample=PQ_C4_OVERSAMPLE))
+    f_recall = _recall_at_10(f_ids, gt_ids)
+    print(f"11c in-core sharded PQ ({SHARDS} shards, per-subspace {PQ_C4_CENTROIDS} x "
+          f"{PQ_C4_DSUB}, code graphs): build {build_s:.3f} s; code-graph search recall@10 "
+          f"{recall:.5f} at {qps:.1f} QPS (10b's single index {c4['graph_recall_at_10']:.5f}); "
+          f"search_exact(oversample={PQ_C4_OVERSAMPLE}) recall@10 {f_recall:.5f} (10b "
+          f"{c4['flat_recall_at_10']:.5f}); launches {build_launches} {search_launches}")
+    assert recall >= c4["graph_recall_at_10"] - ROUTED_RECALL_SLACK, f"11c recall@10 {recall}"
+    assert f_recall >= PQ_C4_RECALL_FLOOR, f"11c flat recall@10 {f_recall}"
+    path = {k: build_launches[k] + search_launches[k] + flat_launches[k] for k in build_launches}
+    return path, {"build_s": build_s, "graph_recall_at_10": recall, "graph_qps": qps,
+                  "flat_recall_at_10": f_recall}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--count", type=int, default=200_000)
@@ -1741,10 +2182,31 @@ def main() -> None:
     c4, c4_numbers, pq_kernels["binned_scan"]["c4_search"] = pq_c4_phase(c4_vecs)
     t = _phase("10b PQ per-subspace", t)
     rest = pq_rest_phase(gate, c4, gate_vecs)
-    del gate, c4
-    _phase("10c PQ persistence and non-dense route", t)
-    _phase("total", t0)
+    del gate, c4, gate_vecs
+    t = _phase("10c PQ persistence and non-dense route", t)
     print("PQ summary: " + json.dumps({"gate": gate_numbers, "c4": c4_numbers, **rest}))
+
+    # 11. out-of-core sources and the sharded indexes, 4 shards on the card:
+    # the kernels at the sharded path's new shapes, then the dense index over
+    # phase 5's corpus, the out-of-core PQ index at config 5's code layout and
+    # the in-core PQ index with code graphs over 10b's corpus; each path's
+    # launches counted from 0
+    sharded_kernels = sharded_kernel_checks(device, source.vectors, queries)
+    sharded_launches, dense_numbers = sharded_dense_phase(
+        device, source, queries, gt_ids, {"recall": recall, "qps": qps})
+    t = _phase("11a sharded dense index", t)
+    c5_launches, c5_kernels, c5_numbers = config5_phase(device)
+    t = _phase("11b out-of-core sharded PQ at config 5's code layout", t)
+    pq_sharded_launches, pq_sharded_numbers = sharded_pq_phase(device, c4_vecs, c4_numbers)
+    _phase("11c in-core sharded PQ with code graphs", t)
+    sharded_path = {k: sharded_launches[k] + c5_launches[k] + pq_sharded_launches[k]
+                    for k in sharded_launches}
+    print(f"launches in one pass of the sharded path (11a-11c): {sharded_path}")
+    for name in ("pairwise_distance", "binned_scan", "row_gather", "gather_distance"):
+        assert sharded_path[name] > 0, f"the sharded path did not launch {name}"
+    _phase("total", t0)
+    print("sharded summary: " + json.dumps({"11a": dense_numbers, "11b": c5_numbers,
+                                            "11c": pq_sharded_numbers}))
 
     print(json.dumps({"kernels": [
         {
@@ -1757,6 +2219,8 @@ def main() -> None:
             "launches_pq_path": pq_launches["pairwise_distance"],
             **kernel,
             "pq": pq_kernels["pairwise_distance"],
+            "launches_sharded_path": sharded_path["pairwise_distance"],
+            "sharded": {"exact": sharded_kernels["exact"], "fast": sharded_kernels["fast"]},
         },
         {
             "name": "bf16_operand",
@@ -1766,6 +2230,7 @@ def main() -> None:
             "launches": operand_launches,
             "launches_flat_scan_path": flat_launches["bf16_operand"],
             "launches_pq_path": pq_launches["bf16_operand"],
+            "launches_sharded_path": sharded_path["bf16_operand"],
             **operand,
         },
         {
@@ -1777,6 +2242,8 @@ def main() -> None:
             "launches_pq_path": pq_launches["binned_scan"],
             **scans["binned_scan"],
             "pq": pq_kernels["binned_scan"],
+            "launches_sharded_path": sharded_path["binned_scan"],
+            "sharded": c5_kernels["binned_scan"],
         },
         {
             "name": "folded_scan",
@@ -1785,6 +2252,7 @@ def main() -> None:
             "replaces": "parallel_hnsw_tpu/ops/pallas_scan.py:161",
             "launches": flat_launches["folded"],
             "launches_pq_path": pq_launches["folded_scan"],
+            "launches_sharded_path": sharded_path["folded_scan"],
             **scans["folded_scan"],
         },
         {
@@ -1797,6 +2265,8 @@ def main() -> None:
             "launches_pq_path": pq_launches["row_gather"],
             **gather,
             "pq": pq_kernels["row_gather"],
+            "launches_sharded_path": sharded_path["row_gather"],
+            "sharded": c5_kernels["row_gather"],
         },
         {
             "name": "gather_distance",
@@ -1808,6 +2278,8 @@ def main() -> None:
             "launches_pq_path": pq_launches["gather_distance"],
             **gather_distance,
             "pq": pq_kernels["gather_distance"],
+            "launches_sharded_path": sharded_path["gather_distance"],
+            "sharded": sharded_kernels["gather_distance"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ over hop slabs), all-pairs ``knn`` / ``threshold_nn`` and exact brute-force
 top-k; the flat-scan path (``fast_flat_knn``,
 ``Hnsw.search_exact(fast=True)``); product quantization (``QuantizedHnsw``
 over a ``PqSource``: shared or per-subspace codebooks, graph / exact / binned
-quantization, ADC tables, flat scan with exact rerank); and index
-persistence, dense and quantized (``io``, the JAX package's directory
-format).  The kernels are hand-written CUDA for
+quantization, ADC tables, flat scan with exact rerank); out-of-core
+sources (``MemmapSource``: f32 rows on the host, gathered in bounded
+pieces); the sharded indexes over a mesh of devices
+(``parallel.ShardedHnsw``, ``parallel.ShardedQuantizedHnsw`` in core and out
+of core); and index persistence, dense, quantized and sharded (``io``, the
+JAX package's directory format).  The kernels are hand-written CUDA for
 Hopper, built with ``nvcc`` at first use: pairwise distances
 (``csrc/pairwise_distance.cu``), the binned and folded distance scans
 (``csrc/binned_scan.cu``), the row gather (``csrc/row_gather.cu``) and the
@@ -33,10 +36,23 @@ Quick start::
                            fast_quantize=True)
     ids, dists = pq.search(queries)        # code graph + exact rerank
     ids, dists = pq.search_exact(queries)  # flat scan over the codes
+
+    from parallel_hnsw_tpu_torch.parallel import Mesh, ShardedQuantizedHnsw
+    mesh = Mesh(["cuda:0"] * 4)            # 4 shards on one card
+    corpus = open_memmap_source("corpus.f32", dim=768)  # stays on the host
+    sq = ShardedQuantizedHnsw.new(65535, corpus, dsub=8, metric=Metric.EUCLIDEAN,
+                                  mesh=mesh, fast_quantize=True, build_graphs=False)
+    ids, dists = sq.search_exact(queries)  # code scans, then a host rerank
 """
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, MATCH_EPSILON
-from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, PqSource
+from parallel_hnsw_tpu_torch.graph import (
+    DenseSource,
+    Layer,
+    MemmapSource,
+    PqSource,
+    open_memmap_source,
+)
 from parallel_hnsw_tpu_torch.analysis import brute_force_knn, fast_flat_knn, select_scan_mode
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.io import (
@@ -44,10 +60,14 @@ from parallel_hnsw_tpu_torch.io import (
     SerializationError,
     deserialize_hnsw,
     deserialize_quantized_hnsw,
+    deserialize_sharded_hnsw,
+    deserialize_sharded_quantized_hnsw,
     deserialize_source,
     read_index_meta,
     serialize_hnsw,
     serialize_quantized_hnsw,
+    serialize_sharded_hnsw,
+    serialize_sharded_quantized_hnsw,
     serialize_source,
 )
 from parallel_hnsw_tpu_torch.ops.distance import Metric
@@ -73,6 +93,8 @@ __all__ = [
     "Layer",
     "DenseSource",
     "PqSource",
+    "MemmapSource",
+    "open_memmap_source",
     "QuantizedHnsw",
     "HnswQuantizer",
     "SubspaceQuantizer",
@@ -86,6 +108,10 @@ __all__ = [
     "deserialize_hnsw",
     "serialize_quantized_hnsw",
     "deserialize_quantized_hnsw",
+    "serialize_sharded_hnsw",
+    "deserialize_sharded_hnsw",
+    "serialize_sharded_quantized_hnsw",
+    "deserialize_sharded_quantized_hnsw",
     "serialize_source",
     "deserialize_source",
     "read_index_meta",

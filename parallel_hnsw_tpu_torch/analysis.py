@@ -146,6 +146,9 @@ def fast_flat_knn(
     mode = select_scan_mode(n) if scan_mode == "auto" else scan_mode
     if mode not in ("exhaustive", "binned", "folded"):
         raise ValueError(f"unknown scan_mode {scan_mode!r}")
+    # a source that is not one dense tensor is gathered block by block: a
+    # PqSource reconstructed on its device, a MemmapSource gathered on the
+    # host and copied to the queries' device (the corpus never is, whole)
     dense = isinstance(source, DenseSource)
     corpus_block = flat_corpus_block(
         n, mode, queries.is_cuda, query_block, corpus_block, tile_c, dense=dense

@@ -21,6 +21,11 @@ attributes the two packages share and turns arrays with ``np.asarray``, so it
 takes a JAX ``QuantizedHnsw`` as well::
 
     q = quantized_from_numpy(quantized_to_numpy(jax_quantized), "cuda")
+
+``sharded_to_numpy`` / ``sharded_from_numpy`` and
+``sharded_quantized_to_numpy`` / ``sharded_quantized_from_numpy`` carry a
+sharded index's stacked arrays the same way (a JAX ``ShardedHnsw`` too); the
+caller gives the mesh, and the memmap of an out-of-core index.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.graph import DenseSource, PqSource, make_layer
+from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, PqSource, make_layer
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.io import from_numpy, to_numpy
 from parallel_hnsw_tpu_torch.ops.distance import Metric
@@ -114,6 +119,36 @@ def _layers_to_numpy(hnsw) -> List[Tuple[np.ndarray, np.ndarray]]:
     return [(_numpy(l.nodes), _numpy(l.neighbors)) for l in hnsw.layers]
 
 
+def _quantizer_to_numpy(quantizer) -> Dict[str, Any]:
+    """A quantizer of either package: ``codebook``, the centroid graph's
+    ``centroid_layers`` / ``centroid_build_params`` (``None`` for a
+    per-subspace quantizer), ``nsub`` and ``pq_params``."""
+    centroid = getattr(quantizer, "hnsw", None)
+    return {
+        "codebook": _numpy(quantizer.centroids if centroid is None else centroid.source.vectors),
+        "centroid_layers": None if centroid is None else _layers_to_numpy(centroid),
+        "centroid_build_params": None if centroid is None else params_to_dict(
+            centroid.build_parameters),
+        "nsub": int(quantizer.nsub),
+        "pq_params": params_to_dict(quantizer.pq_params),
+    }
+
+
+def _quantizer_from_numpy(state: Dict[str, Any], metric: Metric, device: torch.device):
+    """A shared ``[K, dsub]`` codebook becomes an :class:`HnswQuantizer` over
+    the centroid graph, a ``[nsub, K, dsub]`` one a :class:`SubspaceQuantizer`."""
+    codebook = from_numpy(np.array(state["codebook"], np.float32), device)
+    pqp = pq_build_params_from_dict(state["pq_params"])
+    if codebook.dim() == 3:
+        return SubspaceQuantizer(codebook, metric, pqp)
+    centroid = Hnsw(
+        [make_layer(n, nb, device) for n, nb in state["centroid_layers"]],
+        DenseSource(vectors=codebook), metric,
+        build_params_from_dict(state["centroid_build_params"]),
+    )
+    return HnswQuantizer(centroid, int(state["nsub"]), pqp)
+
+
 def quantized_to_numpy(q) -> Dict[str, Any]:
     """The state of a quantized index (of either package) as a dict:
     ``codes`` (``uint16`` or int32, as stored), ``codebook`` (``[K, dsub]``
@@ -122,41 +157,26 @@ def quantized_to_numpy(q) -> Dict[str, Any]:
     graph (``None`` for a per-subspace quantizer), ``nsub``, ``vectors`` (the
     full-precision corpus), ``metric`` and ``pq_params``, the arguments of
     :func:`quantized_from_numpy`."""
-    quantizer = q.quantizer
-    centroid = getattr(quantizer, "hnsw", None)
     return {
+        **_quantizer_to_numpy(q.quantizer),
         "codes": _numpy(q.hnsw.source.codes),
         "codebook": _numpy(q.hnsw.source.codebook),
         "code_layers": _layers_to_numpy(q.hnsw),
         "build_params": params_to_dict(q.hnsw.build_parameters),
-        "centroid_layers": None if centroid is None else _layers_to_numpy(centroid),
-        "centroid_build_params": None if centroid is None else params_to_dict(
-            centroid.build_parameters),
         "nsub": int(q.hnsw.source.codes.shape[1]),
         "vectors": _numpy(q.full_source.vectors),
         "metric": q.hnsw.metric.value,
-        "pq_params": params_to_dict(quantizer.pq_params),
     }
 
 
 def quantized_from_numpy(state: Dict[str, Any], device=None) -> QuantizedHnsw:
     """The port's :class:`QuantizedHnsw` from :func:`quantized_to_numpy`'s
-    dict, placed on ``device`` (``None``: the card).  A shared ``[K, dsub]``
-    codebook becomes an :class:`HnswQuantizer` over the centroid graph, a
-    ``[nsub, K, dsub]`` one a :class:`SubspaceQuantizer`."""
+    dict, placed on ``device`` (``None``: the card)."""
     device = _device.resolve_device(device)
     metric = Metric(state["metric"])
-    codebook = from_numpy(np.array(state["codebook"], np.float32), device)
-    pqp = pq_build_params_from_dict(state["pq_params"])
-    if codebook.dim() == 3:
-        quantizer = SubspaceQuantizer(codebook, metric, pqp)
-    else:
-        centroid = Hnsw(
-            [make_layer(n, nb, device) for n, nb in state["centroid_layers"]],
-            DenseSource(vectors=codebook), metric,
-            build_params_from_dict(state["centroid_build_params"]),
-        )
-        quantizer = HnswQuantizer(centroid, int(state["nsub"]), pqp)
+    quantizer = _quantizer_from_numpy(state, metric, device)
+    codebook = quantizer.centroids if isinstance(quantizer, SubspaceQuantizer) else (
+        quantizer.hnsw.source.vectors)
     code_graph = Hnsw(
         [make_layer(n, nb, device) for n, nb in state["code_layers"]],
         PqSource(codes=from_numpy(np.array(state["codes"]), device), codebook=codebook), metric,
@@ -164,3 +184,67 @@ def quantized_from_numpy(state: Dict[str, Any], device=None) -> QuantizedHnsw:
     )
     full = DenseSource(vectors=from_numpy(np.array(state["vectors"], np.float32), device))
     return QuantizedHnsw(quantizer, code_graph, full)
+
+
+def sharded_to_numpy(sh) -> Dict[str, Any]:
+    """The state of a sharded index (of either package) as a dict of its
+    stacked arrays: ``layers`` (per level ``(nodes [S, N], neighbors
+    [S, N, M])``), ``vectors`` ``[S, N, D]`` of a dense index or ``codes``
+    ``[S, N, nsub]`` + ``codebook`` of a PQ one, ``global_ids`` ``[S, N]``,
+    ``metric`` and ``build_params``: the arguments of
+    :func:`sharded_from_numpy`."""
+    src = sh.source_stacked
+    out = {
+        "layers": [(_numpy(l.nodes), _numpy(l.neighbors)) for l in sh.layers_stacked],
+        "global_ids": _numpy(sh.global_ids),
+        "metric": sh.metric.value,
+        "build_params": params_to_dict(sh.build_parameters),
+    }
+    if hasattr(src, "codes"):
+        out.update(codes=_numpy(src.codes), codebook=_numpy(src.codebook))
+    else:
+        out["vectors"] = _numpy(src.vectors)
+    return out
+
+
+def sharded_from_numpy(state: Dict[str, Any], mesh):
+    """The port's :class:`~parallel_hnsw_tpu_torch.parallel.ShardedHnsw` on
+    ``mesh`` from :func:`sharded_to_numpy`'s dict: each shard's slice on its
+    mesh device."""
+    from parallel_hnsw_tpu_torch.parallel.sharded import ShardedHnsw
+
+    if "codes" in state:
+        source = PqSource(codes=np.asarray(state["codes"]),
+                          codebook=np.asarray(state["codebook"], np.float32))
+    else:
+        source = DenseSource(vectors=np.asarray(state["vectors"], np.float32))
+    layers = [Layer(np.asarray(n, np.int32), np.asarray(nb, np.int32)) for n, nb in state["layers"]]
+    return ShardedHnsw(mesh, layers, source, np.asarray(state["global_ids"], np.int32),
+                       Metric(state["metric"]), build_params_from_dict(state["build_params"]))
+
+
+def sharded_quantized_to_numpy(sq) -> Dict[str, Any]:
+    """A sharded quantized index (of either package): the quantizer's fields
+    (as :func:`quantized_to_numpy`'s), ``sharded`` (:func:`sharded_to_numpy`
+    of its code index) and ``full`` (the in-core rows ``[S, N, D]``, ``None``
+    out of core)."""
+    full = sq.full_stacked
+    return {
+        **_quantizer_to_numpy(sq.quantizer),
+        "sharded": sharded_to_numpy(sq.sharded),
+        "full": None if full is None else _numpy(full),
+    }
+
+
+def sharded_quantized_from_numpy(state: Dict[str, Any], mesh, full_source=None):
+    """The port's ShardedQuantizedHnsw on ``mesh`` from
+    :func:`sharded_quantized_to_numpy`'s dict: the quantizer on the mesh's
+    first device; out of core (``full`` is ``None``) over ``full_source``, a
+    MemmapSource."""
+    from parallel_hnsw_tpu_torch.parallel.sharded import ShardedQuantizedHnsw
+
+    sharded = sharded_from_numpy(state["sharded"], mesh)
+    quantizer = _quantizer_from_numpy(state, sharded.metric, mesh.devices.flat[0])
+    if state["full"] is None:
+        return ShardedQuantizedHnsw(quantizer, sharded, full_host=full_source)
+    return ShardedQuantizedHnsw(quantizer, sharded, np.asarray(state["full"], np.float32))

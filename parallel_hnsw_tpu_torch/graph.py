@@ -1,5 +1,5 @@
 """Graph data model: dense tensors instead of pointer-chasing
-(counterpart of ``parallel_hnsw_tpu.graph``, without the out-of-core source).
+(counterpart of ``parallel_hnsw_tpu.graph``).
 
 Per layer
 
@@ -7,8 +7,12 @@ Per layer
 * ``neighbors [N, M] int32`` — node-id rows, ``EMPTY_ID``-padded
 
 plus a *vector source* that gathers feature vectors for ids: a
-:class:`DenseSource` or a :class:`PqSource` (codes + codebook).  Every tensor
-of an index lives on the source's device.
+:class:`DenseSource` or a :class:`PqSource` (codes + codebook) on a device,
+or a :class:`MemmapSource` (f32 rows on the host, out of core).  Every tensor
+of an index lives on its device source's device.  The functions that take a
+source (:func:`source_get`, :func:`source_distance`,
+:func:`source_effective_width`, :func:`materialize_source`) dispatch on its
+type, so a source kind they do not know raises.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID, ID_DTYPE
 from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
 from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance
+from parallel_hnsw_tpu_torch.utils import device as _device
 
 
 class Layer(NamedTuple):
@@ -85,7 +90,58 @@ class PqSource(NamedTuple):
         return self.codes.device
 
 
-Source = Union[DenseSource, PqSource]
+class MemmapSource(NamedTuple):
+    """Host-resident dense f32 vectors (``np.memmap`` or ``np.ndarray``) that
+    are NEVER moved to a device as a whole: the out-of-core source
+    (reference: ``VectorSelector`` / ``VectorStore``, src/pq.rs:133-142,
+    streamed at src/pq.rs:325-334).  Consumers move rows host -> device in
+    bounded pieces: :meth:`chunks` for quantization and scans,
+    :func:`source_get` (a host gather, then one copy) for rerank rows.  It
+    has no device of its own: whoever gathers from it names one."""
+
+    vectors: "np.memmap | np.ndarray"  # host [V, D] float32
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def count(self) -> int:
+        return self.vectors.shape[0]
+
+    def chunks(self, chunk_size: int = 100_000, ids=None):
+        """Yield host f32 chunks ``[<= chunk_size, D]``, of every row in order
+        or of the rows ``ids`` (any integer array, in its order): host memory
+        stays bounded by one chunk whatever the corpus size."""
+        if ids is None:
+            for start in range(0, self.count, chunk_size):
+                yield np.asarray(self.vectors[start : start + chunk_size])
+        else:
+            ids = np.asarray(ids)
+            for start in range(0, len(ids), chunk_size):
+                yield np.asarray(self.vectors[ids[start : start + chunk_size]])
+
+
+def open_memmap_source(path: str, dim: int, dtype="float32") -> MemmapSource:
+    """Open a raw row-major ``[*, dim]`` file as a MemmapSource (read-only)."""
+    mm = np.memmap(path, dtype=dtype, mode="r")
+    return MemmapSource(vectors=mm.reshape(mm.shape[0] // dim, dim))
+
+
+def host_rows(rows: np.ndarray, device) -> torch.Tensor:
+    """Host rows (a chunk or a gather of a memmap) as one f32 tensor on
+    ``device``; rows that are a read-only view of the file are copied first
+    (torch takes no read-only arrays)."""
+    rows = np.ascontiguousarray(rows, dtype=np.float32)
+    return torch.from_numpy(rows if rows.flags.writeable else rows.copy()).to(device)
+
+
+def is_host_source(source) -> bool:
+    """True when the source's storage lives on the host (out of core)."""
+    return isinstance(source, MemmapSource)
+
+
+Source = Union[DenseSource, PqSource, MemmapSource]
 
 
 def widen_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -109,11 +165,9 @@ def source_get(source, ids: torch.Tensor) -> torch.Tensor:
 
     Ids are clipped into range (the row-gather kernel does not check them);
     EMPTY_ID gathers a real row, so callers mask distances of invalid slots
-    to +inf.  Dispatches on the source's type, as the JAX package does; the
-    other functions that take a source (``source_distance``,
-    ``materialize_source``, ``source_effective_width``, ...) still branch
-    with ``isinstance`` on the two kinds, so a new kind must be added there
-    too."""
+    to +inf.  Dispatches on the source's type, as the JAX package does; a new
+    kind registers here and with :func:`source_distance`,
+    :func:`source_effective_width` and :func:`materialize_source`."""
     raise TypeError(f"unknown source type {type(source)}")
 
 
@@ -127,6 +181,18 @@ def _(source: DenseSource, ids: torch.Tensor) -> torch.Tensor:
 def _(source: PqSource, ids: torch.Tensor) -> torch.Tensor:
     safe = torch.clamp(ids, 0, source.count - 1).to(ID_DTYPE)
     return reconstruct(source.codebook, row_gather(source.codes, safe))
+
+
+@source_get.register
+def _(source: MemmapSource, ids, device=None) -> torch.Tensor:
+    """Host gather (numpy fancy indexing of the clipped ids), then ONE copy
+    of the ``[*ids.shape, D]`` rows to ``device`` (default: the ids' device
+    when they are a tensor, else the card)."""
+    if device is None:
+        device = ids.device if isinstance(ids, torch.Tensor) else _device.resolve_device(None)
+    host_ids = ids.cpu().numpy() if isinstance(ids, torch.Tensor) else np.asarray(ids)
+    idx = np.clip(host_ids, 0, source.count - 1)
+    return host_rows(source.vectors[idx.ravel()].reshape(idx.shape + (source.dim,)), device)
 
 
 def reconstruct(codebook: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -152,8 +218,9 @@ def reconstruct(codebook: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return sub.reshape(*codes.shape[:-1], nsub * dsub)
 
 
+@functools.singledispatch
 def source_distance(
-    source: Source, queries: torch.Tensor, ids: torch.Tensor, metric: Metric
+    source, queries: torch.Tensor, ids: torch.Tensor, metric: Metric
 ) -> torch.Tensor:
     """Distances ``[Q, K]`` of ``queries [Q, D]`` to the feature vectors of
     ``ids [Q, K]`` int32: ``batched_distance(queries, source_get(source,
@@ -163,38 +230,83 @@ def source_distance(
     The rows of a dense source are one tensor, so the gather and the
     distances are one kernel on the card
     (:func:`~parallel_hnsw_tpu_torch.ops.cuda_gather.gather_distance`): the
-    gathered rows never reach device memory.  Any other source (a
-    :class:`PqSource` that ``Hnsw.compute_source`` did not densify)
-    reconstructs the rows with :func:`source_get` and takes
+    gathered rows never reach device memory.  A :class:`PqSource` that
+    ``Hnsw.compute_source`` did not densify reconstructs the rows with
+    :func:`source_get`; a :class:`MemmapSource` gathers them on the host and
+    copies them to the queries' device; both then take
     ``batched_distance``."""
-    if isinstance(source, DenseSource):
-        return gather_distance(queries, source.vectors, ids, metric)
+    raise TypeError(f"unknown source type {type(source)}")
+
+
+@source_distance.register
+def _(source: DenseSource, queries, ids, metric):
+    return gather_distance(queries, source.vectors, ids, metric)
+
+
+def _gathered_distance(source, queries, ids, metric, **device):
     inside = (ids >= 0) & (ids < source.count)
-    d = batched_distance(queries, source_get(source, torch.where(inside, ids, 0)), metric)
-    return torch.where(inside, d, float("inf"))
+    rows = source_get(source, torch.where(inside, ids, 0), **device)
+    return torch.where(inside, batched_distance(queries, rows, metric), float("inf"))
 
 
-def source_effective_width(source: Source) -> int:
+@source_distance.register
+def _(source: PqSource, queries, ids, metric):
+    return _gathered_distance(source, queries, ids, metric)
+
+
+@source_distance.register
+def _(source: MemmapSource, queries, ids, metric):
+    return _gathered_distance(source, queries, ids, metric, device=queries.device)
+
+
+@functools.singledispatch
+def source_effective_width(source) -> int:
     """Bytes-per-vector proxy for block-size budgeting.  The JAX package pads
     every gathered row to 128 lanes (a PQ reconstruction gathers ``[*, Dsub]``
     rows, each padded to 128), kept here so both packages cut the same
     blocks."""
-    if isinstance(source, PqSource):
-        if source.codebook.dim() == 2:
-            nsub, dsub = source.codes.shape[1], source.codebook.shape[1]
-        else:
-            nsub, _, dsub = source.codebook.shape
-        return nsub * max(dsub, 128)
+    raise TypeError(f"unknown source type {type(source)}")
+
+
+@source_effective_width.register(DenseSource)
+@source_effective_width.register(MemmapSource)
+def _(source) -> int:
     return max(source.dim, 128)
 
 
-def materialize_source(source: Source, block: int = 16384) -> torch.Tensor:
+@source_effective_width.register
+def _(source: PqSource) -> int:
+    if source.codebook.dim() == 2:
+        nsub, dsub = source.codes.shape[1], source.codebook.shape[1]
+    else:
+        nsub, _, dsub = source.codebook.shape
+    return nsub * max(dsub, 128)
+
+
+@functools.singledispatch
+def materialize_source(source, block: int = 16384, device=None) -> torch.Tensor:
     """The source as a dense f32 ``[N, D]`` tensor: a DenseSource as it is
-    (no copy), any other source gathered in row blocks."""
-    if isinstance(source, DenseSource):
-        return source.vectors
+    (no copy), a PqSource reconstructed in row blocks on its device, a
+    MemmapSource copied in row blocks to ``device`` (default: the card; this
+    puts the whole corpus on it, as the JAX package's does)."""
+    raise TypeError(f"unknown source type {type(source)}")
+
+
+@materialize_source.register
+def _(source: DenseSource, block: int = 16384, device=None) -> torch.Tensor:
+    return source.vectors
+
+
+@materialize_source.register
+def _(source: PqSource, block: int = 16384, device=None) -> torch.Tensor:
     ids = torch.arange(source.count, dtype=ID_DTYPE, device=source.device)
     return gather_features(source, ids, block)
+
+
+@materialize_source.register
+def _(source: MemmapSource, block: int = 16384, device=None) -> torch.Tensor:
+    device = _device.resolve_device(device)
+    return torch.cat([host_rows(c, device) for c in source.chunks(block)])
 
 
 def gather_features(source: Source, ids: torch.Tensor, block: int = 8192) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Index persistence: directory format with pinned dtypes (counterpart of
-``parallel_hnsw_tpu.io``, without the sharded index).
+``parallel_hnsw_tpu.io``).
 
 Same layout as the JAX package (and, in shape, the reference's
 src/serialize.rs:33-209), so either package reads what the other wrote:
@@ -8,10 +8,14 @@ src/serialize.rs:33-209), so either package reads what the other wrote:
 dumps (numbered from the *bottom*), plus a ``comparator/`` directory for the
 vector store.  All arrays are little-endian int32/float32, PQ codes
 ``uint16`` or int32 as stored.  A quantized index nests ``quantizer/``,
-``hnsw/`` and ``comparator/`` (reference: src/pq.rs:433-452).
+``hnsw/`` and ``comparator/`` (reference: src/pq.rs:433-452); a sharded
+index one ``shard.{s}/`` per shard, a sharded quantized one ``quantizer/``,
+``sharded/`` and its in-core rows (out of core, the memmap is the user's
+store and is not written).
 
 Every ``deserialize_*`` takes a ``device`` and places what it reads there
-(``None``: the card, :func:`parallel_hnsw_tpu_torch.utils.device.default_device`).
+(``None``: the card, :func:`parallel_hnsw_tpu_torch.utils.device.default_device`);
+the sharded ones take the mesh, whose devices say where each shard goes.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, PqSource, Source
+from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, PqSource, Source, is_host_source
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.ops.distance import Metric
 from parallel_hnsw_tpu_torch.params import (
@@ -91,6 +95,12 @@ def serialize_source(source: Source, path: Union[str, Path]) -> None:
         }
         _write_array(path / "codes", source.codes, code_dtype)
         _write_array(path / "codebook", source.codebook, "float32")
+    elif is_host_source(source):
+        # the user's store, as the reference's comparator (src/lib.rs:76-83):
+        # an out-of-core index records where it is, not its rows
+        raise SerializationError(
+            "a host (out-of-core) source is an external store: it is not written"
+        )
     else:
         raise SerializationError(f"unknown source type {type(source)}")
     (path / "meta").write_text(json.dumps(meta))
@@ -262,3 +272,126 @@ def deserialize_quantized_hnsw(path: Union[str, Path], device=None) -> Quantized
     hnsw = deserialize_hnsw(path / "hnsw", device=device)
     full_source = deserialize_source(path / "comparator", device)
     return QuantizedHnsw(quantizer, hnsw, full_source)
+
+
+# -- sharded hnsw -------------------------------------------------------------
+# The layout extends the directory format (reference: serialize.rs:33-209)
+# with per-shard subdirectories, as the JAX package writes it: each shard is
+# the standard Hnsw layout (its padded source as the comparator) plus
+# ``global_ids``.
+
+
+def serialize_sharded_hnsw(sh, path: Union[str, Path]) -> None:
+    """Per-shard subdirs ``shard.{s}/`` under a top-level ``meta`` with mesh
+    info."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "sharded_hnsw",
+        "n_shards": sh.n_shards,
+        "axis": sh.axis,
+        "metric": sh.metric.value,
+        "build_parameters": params_to_dict(sh.build_parameters),
+    }
+    (path / "meta").write_text(json.dumps(meta))
+    for s in range(sh.n_shards):
+        sdir = path / f"shard.{s}"
+        serialize_hnsw(sh._shard_hnsw(s), sdir, store_source=True)
+        gids = sh.shard_global_ids(s)
+        _write_array(sdir / "global_ids", gids, "int32")
+        (sdir / "shard.meta").write_text(json.dumps({"rows": int(gids.shape[0])}))
+
+
+def deserialize_sharded_hnsw(path: Union[str, Path], mesh):
+    """A ShardedHnsw on ``mesh`` (runtime state the caller supplies; its
+    size must be the index's shard count), each shard read onto its mesh
+    device."""
+    from parallel_hnsw_tpu_torch.parallel.sharded import ShardedHnsw
+
+    path = Path(path)
+    meta = json.loads((path / "meta").read_text())
+    if meta.get("kind") != "sharded_hnsw":
+        raise SerializationError(f"not a sharded index: {path}")
+    n_shards = meta["n_shards"]
+    if mesh.devices.size != n_shards:
+        raise SerializationError(
+            f"mesh has {mesh.devices.size} devices but index has {n_shards} shards"
+        )
+    bp = build_params_from_dict(meta["build_parameters"])
+    metric = Metric(meta["metric"])
+    shard_hnsws, gids = [], []
+    for s, dev in enumerate(mesh.devices.flat):
+        sdir = path / f"shard.{s}"
+        shard_hnsws.append(deserialize_hnsw(sdir, device=dev))
+        rows = json.loads((sdir / "shard.meta").read_text())["rows"]
+        gids.append(_read_array(sdir / "global_ids", "int32", (rows,), dev))
+    out = ShardedHnsw._from_shards(
+        mesh, [[] for _ in shard_hnsws], [h.source for h in shard_hnsws], gids, metric, bp
+    )
+    if shard_hnsws[0].layer_count:
+        out._restack_from_hnsws(shard_hnsws)
+    return out
+
+
+def serialize_sharded_quantized_hnsw(sq, path: Union[str, Path]) -> None:
+    """Nested layout (reference: src/pq.rs:433-452): ``quantizer/`` +
+    ``sharded/`` + the stacked in-core rows in ``full``, written shard by
+    shard.  Out of core the rows are the user's store: ``meta`` records
+    their width and, for a memmap, its file as a reload hint."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    out_of_core = sq.full_host is not None
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "sharded_quantized_hnsw",
+        "nsub": sq.quantizer.nsub,
+        "out_of_core": out_of_core,
+    }
+    n = sq.sharded.n_shards
+    if out_of_core:
+        meta["full_dim"] = int(sq.full_host.dim)
+        filename = getattr(sq.full_host.vectors, "filename", None)
+        if filename:
+            meta["full_path"] = str(filename)
+    else:
+        meta["full_shape"] = [n, *sq.shard_full(0).shape]
+    (path / "meta").write_text(json.dumps(meta))
+    _serialize_quantizer(sq.quantizer, path / "quantizer")
+    serialize_sharded_hnsw(sq.sharded, path / "sharded")
+    if not out_of_core:
+        with open(path / "full", "wb") as f:
+            for s in range(n):
+                f.write(np.ascontiguousarray(to_numpy(sq.shard_full(s)), "<f4").tobytes())
+
+
+def deserialize_sharded_quantized_hnsw(path: Union[str, Path], mesh, full_source=None):
+    """A ShardedQuantizedHnsw on ``mesh``: the quantizer on its first device,
+    each shard (and its in-core rows) on its own.  Out of core the rows are
+    external: ``full_source`` (a MemmapSource), else the recorded memmap
+    file; neither raises (reference: a missing store is IndexNotFound,
+    src/serialize.rs:143-146)."""
+    from parallel_hnsw_tpu_torch.graph import open_memmap_source
+    from parallel_hnsw_tpu_torch.parallel.sharded import ShardedQuantizedHnsw
+
+    path = Path(path)
+    meta = json.loads((path / "meta").read_text())
+    if meta.get("kind") != "sharded_quantized_hnsw":
+        raise SerializationError(f"not a sharded PQ index: {path}")
+    quantizer = _deserialize_quantizer(path / "quantizer", mesh.devices.flat[0])
+    sharded = deserialize_sharded_hnsw(path / "sharded", mesh)
+    if meta.get("out_of_core"):
+        if full_source is None:
+            hint = meta.get("full_path")
+            if not hint or not Path(hint).exists():
+                raise SerializationError(
+                    "out-of-core index: pass full_source= (the vector store "
+                    "is external, like the reference's comparator — "
+                    "src/serialize.rs:143-146)"
+                )
+            full_source = open_memmap_source(hint, meta["full_dim"])
+        return ShardedQuantizedHnsw(quantizer, sharded, full_host=full_source)
+    n, per, dim = meta["full_shape"]
+    full = np.memmap(path / "full", dtype="<f4", mode="r", shape=(n, per, dim))
+    rows = [from_numpy(np.array(full[s], np.float32), dev) for s, dev in enumerate(mesh.devices.flat)]
+    return ShardedQuantizedHnsw(quantizer, sharded, rows)

@@ -26,7 +26,7 @@ becomes an exact ``torch.topk``.  The numpy draws match bit for bit.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,7 +35,10 @@ from parallel_hnsw_tpu_torch.analysis import _cut_survivors, blocked_topk_pairwi
 from parallel_hnsw_tpu_torch.constants import ID_DTYPE
 from parallel_hnsw_tpu_torch.graph import (
     DenseSource,
+    MemmapSource,
     PqSource,
+    host_rows,
+    is_host_source,
     narrow_codes,
     reconstruct,
     source_effective_width,
@@ -67,6 +70,12 @@ def _as_tensor(vectors: Vectors, device=None) -> torch.Tensor:
     if isinstance(vectors, torch.Tensor):
         return vectors
     return torch.as_tensor(np.asarray(vectors, np.float32), device=_device.resolve_device(device))
+
+
+def code_dtype_for(n_centroids: int) -> torch.dtype:
+    """``uint16`` codes when the codebook fits them, else int32 (reference
+    parity: u16 codes, src/pq.rs:20)."""
+    return torch.uint16 if n_centroids <= 65536 else torch.int32
 
 
 def _draws(seed: int, stream: int) -> np.random.Generator:
@@ -143,14 +152,16 @@ def random_centroids(
     ``projection`` (``[dsub]``) and ``shuffle`` (one key per sampled
     sub-vector) replace the default draws of :func:`dedup_projection` and
     :func:`shuffle_keys`; the sample itself is numpy's, as in the JAX
-    package."""
+    package.  The sampled rows are read in ascending order from a tensor as
+    from a memmap (the JAX package sorts them for a host array only): rows
+    that tie on the dedup hash keep their order through its stable sort, so
+    the same rows give the same centroids whatever holds them."""
     count, dim = vectors.shape
     if dim % dsub:
         raise ValueError(f"dim {dim} is not a multiple of dsub {dsub}")
     rng = np.random.default_rng(seed)
-    sel = rng.permutation(count)[: min(n_centroids, count)]
+    sel = np.sort(rng.permutation(count)[: min(n_centroids, count)])
     if isinstance(vectors, np.ndarray):
-        sel.sort()
         subs = _as_tensor(vectors[sel], device).reshape(-1, dsub)
     else:
         idx = torch.as_tensor(sel, dtype=ID_DTYPE, device=vectors.device)
@@ -220,8 +231,9 @@ def kmeans_centroids(
 
     Above a ``[N, K]`` assignment-matrix budget the plain loop is swapped for
     the blocked binned-argmin + ``index_add_`` formulation
-    (:func:`_kmeans_big`)."""
-    subs = _as_tensor(vectors, device).reshape(-1, dsub)
+    (:func:`_kmeans_big`).  A numpy (or memmap) corpus is sampled on the
+    host: only the sample goes to ``device``."""
+    subs = vectors.reshape(-1, dsub)
     if sample is not None and sample < len(subs):
         rng = np.random.default_rng(seed)
         if len(subs) > 50_000_000:
@@ -230,7 +242,11 @@ def kmeans_centroids(
             sel = np.sort(rng.integers(0, len(subs), sample))
         else:
             sel = rng.permutation(len(subs))[:sample]
-        subs = subs[torch.as_tensor(sel, device=subs.device)]
+        if isinstance(subs, torch.Tensor):
+            subs = subs[torch.as_tensor(sel, device=subs.device)]
+        else:
+            subs = subs[sel]
+    subs = _as_tensor(subs, device)
     k = min(n_centroids, len(subs))
     rng = np.random.default_rng(seed)
     if len(subs) > 50_000_000:
@@ -333,22 +349,35 @@ def per_subspace_centroids(
     iters: int = 5,
     sample: Optional[int] = None,
     device=None,
+    projections: Optional[Sequence[torch.Tensor]] = None,
+    shuffles: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Train one ``[K, dsub]`` codebook per subspace -> ``[nsub, K, dsub]``.
-    Subspace ``j`` trains with seed ``seed + j``; one with fewer than K
-    unique rows is tiled up to K (harmless duplicates)."""
-    vectors = _as_tensor(vectors, device)
+    """Train one ``[K, dsub]`` codebook per subspace -> ``[nsub, K, dsub]``
+    on the vectors' device (a numpy or memmap corpus: on ``device``, each
+    subspace's column read on the host).  Subspace ``j`` trains with seed
+    ``seed + j`` (random centroids: with ``projections[j]`` /
+    ``shuffles[j]`` in place of the default draws when given); one with
+    fewer than K unique rows is tiled up to K (harmless duplicates)."""
+    if isinstance(vectors, torch.Tensor):
+        device = vectors.device
+    else:
+        device = _device.resolve_device(device)
     dim = vectors.shape[1]
     if dim % dsub:
         raise ValueError(f"dim {dim} is not a multiple of dsub {dsub}")
     nsub = dim // dsub
-    books = torch.empty((nsub, n_centroids, dsub), dtype=torch.float32, device=vectors.device)
+    books = torch.empty((nsub, n_centroids, dsub), dtype=torch.float32, device=device)
     for j in range(nsub):
         col = vectors[:, j * dsub : (j + 1) * dsub]
         if use_kmeans:
-            cb = kmeans_centroids(col, n_centroids, dsub, iters=iters, seed=seed + j, sample=sample)
+            cb = kmeans_centroids(col, n_centroids, dsub, iters=iters, seed=seed + j,
+                                  sample=sample, device=device)
         else:
-            cb = random_centroids(col, n_centroids, dsub, seed=seed + j)
+            cb = random_centroids(
+                col, n_centroids, dsub, seed=seed + j, device=device,
+                projection=None if projections is None else projections[j],
+                shuffle=None if shuffles is None else shuffles[j],
+            )
         if len(cb) < n_centroids:
             reps = -(-n_centroids // len(cb))
             cb = cb.repeat(reps, 1)[:n_centroids]
@@ -475,7 +504,7 @@ Quantizer = Union[HnswQuantizer, SubspaceQuantizer]
 class QuantizedHnsw:
     """Two-level PQ index (reference: QuantizedHnsw, src/pq.rs:120-411)."""
 
-    def __init__(self, quantizer: Quantizer, hnsw: Hnsw, full_source: DenseSource):
+    def __init__(self, quantizer: Quantizer, hnsw: Hnsw, full_source: Union[DenseSource, MemmapSource]):
         self.quantizer = quantizer
         self.hnsw = hnsw  # graph over PqSource codes
         self.full_source = full_source
@@ -485,7 +514,7 @@ class QuantizedHnsw:
     def new(
         cls,
         number_of_centroids: int,
-        full_source: DenseSource,
+        full_source: Union[DenseSource, MemmapSource],
         dsub: int,
         metric: Metric,
         pqp: Optional[PqBuildParams] = None,
@@ -499,12 +528,25 @@ class QuantizedHnsw:
         kmeans_sample: Optional[int] = None,
         progress: Optional[ProgressMonitor] = None,
         verbose: bool = False,
+        projection=None,
+        shuffle=None,
+        device=None,
     ) -> "QuantizedHnsw":
         """Centroids (random or k-means; shared or per subspace), the centroid
         graph and its ``improve_index`` (shared codebook only), the corpus
         quantized in ``chunk_size`` chunks into a :class:`PqSource` (``uint16``
-        codes when K <= 65536), then the code graph over it.  Everything lands
-        on ``full_source``'s device."""
+        codes when K <= 65536), then the code graph over it.
+
+        A DenseSource's index lands on its device.  A :class:`MemmapSource`
+        (out of core) stays on the host: centroids are sampled from host rows,
+        each chunk is copied to ``device`` (default: the card) alone, and
+        ``full_source`` keeps the memmap, so the exact rerank of
+        :meth:`search` / :meth:`search_exact` gathers its rows on the host;
+        the f32 corpus never exists on the device as a whole.
+
+        ``projection`` / ``shuffle`` replace the default draws of random
+        centroids (:func:`random_centroids`; per subspace, one of each per
+        subspace), so a caller can hand in the JAX package's own."""
         pqp = pqp or PqBuildParams()
         metric = Metric(metric)
         monitor = ensure_monitor(progress)
@@ -513,26 +555,33 @@ class QuantizedHnsw:
         if dim % dsub:
             raise ValueError(f"dim {dim} is not a multiple of dsub {dsub}")
         nsub = dim // dsub
-        vectors = full_source.vectors  # also what the spans wait on: the device's queue
+        host = is_host_source(full_source)
+        device = _device.resolve_device(device) if host else full_source.device
+        vectors = full_source.vectors
+        sync = torch.empty(0, device=device)  # what the spans wait on: the device's queue
 
         if per_subspace:
-            with TRACER.span("pq_subspace_centroids", sync=vectors, n=number_of_centroids):
+            with TRACER.span("pq_subspace_centroids", sync=sync, n=number_of_centroids):
                 centroids = per_subspace_centroids(
-                    vectors, number_of_centroids, dsub, seed=seed,
-                    use_kmeans=use_kmeans, sample=kmeans_sample,
+                    vectors, number_of_centroids, dsub, seed=seed, use_kmeans=use_kmeans,
+                    sample=kmeans_sample, device=device, projections=projection, shuffles=shuffle,
                 )
             monitor.alive()
             quantizer: Quantizer = SubspaceQuantizer(centroids, metric, pqp)
         else:
-            with TRACER.span("pq_centroids", sync=vectors, n=number_of_centroids):
+            with TRACER.span("pq_centroids", sync=sync, n=number_of_centroids):
                 if use_kmeans:
                     centroids = kmeans_centroids(
-                        vectors, number_of_centroids, dsub, seed=seed, sample=kmeans_sample
+                        vectors, number_of_centroids, dsub, seed=seed, sample=kmeans_sample,
+                        device=device,
                     )
                 else:
-                    centroids = random_centroids(vectors, number_of_centroids, dsub, seed=seed)
+                    centroids = random_centroids(
+                        vectors, number_of_centroids, dsub, seed=seed, projection=projection,
+                        shuffle=shuffle, device=device,
+                    )
             monitor.alive()
-            with TRACER.span("pq_centroid_graph", sync=vectors):
+            with TRACER.span("pq_centroid_graph", sync=sync):
                 centroid_hnsw = Hnsw.generate(
                     DenseSource(vectors=centroids), None, pqp.centroids, metric, seed=seed,
                     progress=monitor, verbose=verbose,
@@ -543,22 +592,22 @@ class QuantizedHnsw:
         # quantize the corpus in streaming chunks (reference: vector_chunks,
         # src/pq.rs:325-334)
         n = full_source.count
+        if host:
+            chunks = (host_rows(c, device) for c in full_source.chunks(chunk_size))
+        else:
+            chunks = (vectors[start : start + chunk_size] for start in range(0, n, chunk_size))
         codes = []
-        with TRACER.span("pq_quantize", sync=vectors, n=n):
-            for start in range(0, n, chunk_size):
+        with TRACER.span("pq_quantize", sync=sync, n=n):
+            for chunk in chunks:
                 monitor.alive()
-                codes.append(quantizer.quantize(
-                    vectors[start : start + chunk_size], exact=exact_quantize, fast=fast_quantize
-                ))
+                codes.append(quantizer.quantize(chunk, exact=exact_quantize, fast=fast_quantize))
         codes = torch.cat(codes)
-        n_cent = centroids.shape[-2]
         if code_dtype is None:
-            # reference parity: u16 codes when the codebook fits (src/pq.rs:20)
-            code_dtype = torch.uint16 if n_cent <= 65536 else torch.int32
+            code_dtype = code_dtype_for(centroids.shape[-2])
         codes = narrow_codes(codes) if code_dtype == torch.uint16 else codes.to(code_dtype)
         pq_source = PqSource(codes=codes, codebook=centroids)
 
-        with TRACER.span("pq_code_graph", sync=vectors, n=n):
+        with TRACER.span("pq_code_graph", sync=sync, n=n):
             hnsw = Hnsw.generate(
                 pq_source, None, pqp.hnsw, metric, seed=seed, progress=monitor, verbose=verbose
             )

@@ -30,10 +30,9 @@ import torch
 
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE
 from parallel_hnsw_tpu_torch.graph import (
-    DenseSource,
     Layer,
-    PqSource,
     Source,
+    is_host_source,
     node_to_vec,
     source_effective_width,
     source_get,
@@ -133,22 +132,20 @@ def exact_rerank(
 
     Shared by routed graph search and the PQ pipeline (reference rerank
     contract: src/pq.rs:354-363).  Blocked over queries so the gathered
-    ``[qb, ef, width]`` block honors the memory budget.  Only device sources
-    (dense or PQ) are taken: the JAX package's host-source branch waits for
-    the out-of-core source.
+    ``[qb, ef, width]`` block honors the memory budget.  A host
+    (out-of-core) source gathers each block's candidate rows on the host and
+    moves only that ``[qb, ef, D]`` block to the queries' device: the corpus
+    never reaches it (reference seam: src/pq.rs:133-142).
     """
-    if not isinstance(source, (DenseSource, PqSource)):
-        raise NotImplementedError(
-            f"exact_rerank takes a device source, got {type(source).__name__}: "
-            "host (out-of-core) sources are not ported yet"
-        )
     metric = Metric(metric)
     ef = ids.shape[1]
     qb = max(16, block_budget // max(1, ef * source_effective_width(source) * 4))
+    host = {"device": queries.device} if is_host_source(source) else {}
     out_i, out_d = [], []
     for qs in range(0, queries.shape[0], qb):
         block_ids = ids[qs : qs + qb]
-        d = batched_distance(queries[qs : qs + qb], source_get(source, block_ids), metric)
+        cand = source_get(source, block_ids, **host)
+        d = batched_distance(queries[qs : qs + qb], cand, metric)
         d = torch.where(block_ids == EMPTY_ID, EMPTY_DIST, d)
         r_ids, r_d = sort_queue(block_ids, d)
         out_i.append(r_ids)

@@ -680,3 +680,98 @@ def test_quantized_index_on_device(device, tmp_path):
         loaded = deserialize_quantized_hnsw(tmp_path / str(len(kw)))
         assert loaded.hnsw.source.codes.is_cuda
         assert torch.equal(loaded.search(source.vectors[:100])[0], q.search(source.vectors[:100])[0])
+
+
+# ---------------------------------------------------------------------------
+# out-of-core sources and the sharded indexes
+
+
+def test_host_rerank_onto_the_card(device, tmp_path):
+    """exact_rerank over a memmap gathers candidate rows on the host and moves
+    them to the queries' device: the card's answer against the CPU's."""
+    from parallel_hnsw_tpu_torch.graph import open_memmap_source
+    from parallel_hnsw_tpu_torch.routing import exact_rerank
+
+    rng = np.random.default_rng(7)
+    arr = rng.normal(size=(5000, 96)).astype(np.float32)
+    arr.tofile(tmp_path / "corpus.f32")
+    mm = open_memmap_source(str(tmp_path / "corpus.f32"), 96)
+    ids = torch.from_numpy(rng.integers(0, 5000, (300, 40)).astype(np.int32))
+    ids[:, -3:] = -1
+    q = torch.from_numpy(rng.normal(size=(300, 96)).astype(np.float32))
+    for metric in (Metric.EUCLIDEAN, Metric.NORMALIZED_COSINE):
+        got_i, got_d = exact_rerank(mm, metric, q.to(device), ids.to(device))
+        want_i, want_d = exact_rerank(mm, metric, q, ids)
+        assert got_i.is_cuda and got_d.is_cuda
+        torch.testing.assert_close(got_d.cpu(), want_d, atol=2e-5, rtol=1e-6)
+        fin = torch.isfinite(want_d)
+        assert float((got_i.cpu() == want_i)[fin].float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("n, fast", [(1000, False), (1000, True), (210_000, True)],
+                         ids=["exact", "fast-pairwise", "fast-binned"])
+def test_shard_flat_scan_on_the_card(device, n, fast):
+    """One shard's flat scan (dense and PQ rows) on CUDA tensors against the
+    CPU plain versions: the same survivors by value (fast: the bf16 scan
+    rounds differently from the CPU's fp32, so the ids as sets at equal
+    distance, most of them), each through its kernel."""
+    from parallel_hnsw_tpu_torch.graph import PqSource
+    from parallel_hnsw_tpu_torch.parallel.sharded import _shard_flat_scan
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = torch.from_numpy(x[:64] + 0.01)
+    book = torch.from_numpy(rng.normal(size=(256, 8)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (n, 4)).astype(np.int32))
+    for local in (DenseSource(torch.from_numpy(x)), PqSource(codes=codes, codebook=book)):
+        card = type(local)(*(t.to(device) for t in local))
+        before = dict(cuda_scan.LAUNCHES), dict(cuda_distance.LAUNCHES)
+        got_i, got_d = _shard_flat_scan(card, q.to(device), Metric.NORMALIZED_COSINE, 40, fast)
+        want_i, want_d = _shard_flat_scan(local, q, Metric.NORMALIZED_COSINE, 40, fast)
+        if n >= 200_000:
+            assert cuda_scan.LAUNCHES["binned"] > before[0]["binned"]
+        else:
+            key = "fast" if fast else "exact"
+            assert cuda_distance.LAUNCHES[key] > before[1][key]
+        if not fast:
+            assert torch.equal(got_i.cpu(), want_i)
+            torch.testing.assert_close(got_d.cpu(), want_d, atol=2e-5, rtol=0)
+        else:
+            same = np.mean([len(set(a) & set(b)) / 40 for a, b in
+                            zip(got_i.cpu().numpy(), want_i.numpy())])
+            assert same >= 0.9, same
+
+
+def test_sharded_indexes_on_the_card(device, tmp_path):
+    """4 shards on one card: the dense index and the out-of-core PQ index
+    build, search on the card, and agree with their CPU twins."""
+    from parallel_hnsw_tpu_torch.graph import open_memmap_source
+    from parallel_hnsw_tpu_torch.parallel import Mesh, ShardedHnsw, ShardedQuantizedHnsw
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4000, 32)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    mesh = Mesh([device] * 4)
+    sh = ShardedHnsw.generate(DenseSource(torch.from_numpy(x).to(device)), mesh,
+                              metric=Metric.NORMALIZED_COSINE, seed=0)
+    q = torch.from_numpy(x[:500]).to(device)
+    ids, _ = sh.search(q, k=10)
+    assert ids.is_cuda and float((ids[:, 0] == torch.arange(500, device=device)).float().mean()) >= 0.95
+    e_ids, _ = sh.search_exact(q, k=10, fast=True)
+    assert float((e_ids[:, 0] == torch.arange(500, device=device)).float().mean()) == 1.0
+    assert sh.stochastic_recall() >= 0.95
+
+    x.tofile(tmp_path / "corpus.f32")
+    mm = open_memmap_source(str(tmp_path / "corpus.f32"), 32)
+    sq = ShardedQuantizedHnsw.new(1024, mm, 4, Metric.EUCLIDEAN, mesh, fast_quantize=True,
+                                  build_graphs=False)
+    cpu = ShardedQuantizedHnsw.new(1024, mm, 4, Metric.EUCLIDEAN, Mesh(["cpu"] * 4),
+                                   exact_quantize=True, build_graphs=False)
+    assert sq.sharded.shard_source(0).codes.is_cuda
+    agree = (sq.sharded.source_stacked.codes.view(torch.int16).cpu()
+             == cpu.sharded.source_stacked.codes.view(torch.int16)).float().mean()
+    assert float(agree) >= 0.999
+    p_ids, p_d = sq.search_exact(q, k=10)
+    assert float((p_ids[:, 0] == torch.arange(500, device=device)).float().mean()) >= 0.99
+    assert float(p_d[:, 0].abs().max()) < 1e-3

@@ -143,10 +143,11 @@ def test_exact_rerank_sorts_and_masks_empty():
     assert np.all(r_ids.numpy()[:, -1] == EMPTY_ID)  # EMPTY sinks to tail
     want = pairwise_distance(queries, src.vectors[[3, 5, 17]], Metric.COSINE).numpy()
     np.testing.assert_allclose(np.sort(d[:, :3], axis=-1), np.sort(want, axis=-1), atol=1e-5)
-    # query blocks give the same answer; a host source is not taken yet
+    # query blocks give the same answer; a source of no known kind raises
+    # (a host source is taken: tests/test_torch_outofcore.py)
     b_ids, b_d = tr.exact_rerank(src, Metric.COSINE, queries, ids, block_budget=1)
     assert torch.equal(b_ids, r_ids) and torch.equal(b_d, r_d)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="unknown source type"):
         tr.exact_rerank(object(), Metric.COSINE, queries, ids)
 
 
