@@ -46,9 +46,15 @@ Phases, each printed as it ends:
    row-gather kernel + ``batched_distance`` (the hop before it), of the
    plain version and of ``torch.index_select`` + ``torch.baddbmm``, beside
    its bounds with the table read once and with every gathered row read;
-5. ``Hnsw.generate`` over ``--count`` random 100-d unit vectors (numpy seed
-   42, normalized cosine, default ``BuildParams``, seed 0): build time, layer
-   sizes, stochastic recall, the trace summary and the kernel launch counts;
+5. the corpus of ``--count`` random 100-d unit vectors and 10,000 held-out
+   ones (numpy seed 42) goes through the reference's file format: written
+   as an ``.fvecs`` file to a temporary directory and read back with
+   ``utils.datasets.read_vecs`` (the native reader, built with ``g++``, on 8
+   threads; the file is in the page cache), byte-equal to the drawn rows, to
+   the numpy reader and to ``vector_chunks``; then ``Hnsw.generate`` over the
+   rows read (normalized cosine, default ``BuildParams``, seed 0): build
+   time, layer sizes, stochastic recall, the trace summary and the kernel
+   launch counts;
 6. ``Hnsw.search`` of 10,000 held-out vectors at the default
    ``SearchParams``: recall@10 against ``Hnsw.search_exact`` and QPS; then
    recall@10 of as many corpus rows as queries (``bench.py``'s measure), and
@@ -64,7 +70,9 @@ Phases, each printed as it ends:
    two gather kernels) and one fast-tier relink of the bottom layer under it
    too; then on a
    10,000 x 100 index: a build that resumes from its own checkpoint, a
-   mutation that drops the slabs, and ``knn(10)``;
+   mutation that drops the slabs, and ``knn(10)``; and a source type of the
+   user's (``ScaledSource``, registered with ``source_get`` alone) over the
+   same rows: built and searched on the card, each row found first;
 8. persistence: the index goes to a temporary directory and comes back onto
    the card; 1,000 queries give identical ids and distances with both;
 9. the flat scan at full width: 2,097,152 x 128 unit vectors and 10,000
@@ -119,6 +127,22 @@ Phases, each printed as it ends:
    code scan, and the host rerank of its candidates equal to the card's bit
    for bit.  11c: an in-core ``ShardedQuantizedHnsw`` with code graphs over
    10b's corpus and codebooks: code-graph and flat recall@10 beside 10b's.
+12. graph diagnostics on phase 5's index (200,000 / 16,666 / 1,388 / ... nodes):
+   ``node_distances_for_layer(0)`` over the 200k bottom layer from its 16,666
+   supers, twice (equal bit for bit), against scipy's Dijkstra (unit edges
+   for hops, slot + 1 for index_sum) and against the same code on a CPU copy
+   of the layer: its iterations, ms and unreachable count, and
+   ``discover_nodes_to_promote(0)`` exactly the unreachable nodes; one
+   64-super chunk of ``per_super_node_distances`` over the bottom layer,
+   timed; on layer 1 (16,666 nodes, 1,388 supers, 22 chunks of 64):
+   ``node_distances`` as on layer 0, ``per_super_node_distances`` (its
+   minimum over the supers equal to ``node_distances``),
+   ``multi_node_distances(k=5)``, ``node_distances_from_closest_super``,
+   ``nodes_not_connected_to_super`` and ``group_nodes_by_vectors``, each
+   timed on the card and held to the CPU run of the same code (the BFS
+   tables on the first 128 supers, two chunks; the partition on all of
+   them, equal but for near-ties); ``reachables_from_node_for_layer`` from
+   the entry over the top layer.
 
 The second-to-last line is a JSON object describing the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -135,6 +159,7 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -165,6 +190,7 @@ from parallel_hnsw_tpu_torch import analysis
 from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID
 from parallel_hnsw_tpu_torch.graph import (
+    Layer,
     host_rows,
     materialize_source,
     narrow_codes,
@@ -185,7 +211,9 @@ from parallel_hnsw_tpu_torch.ops.distance import (
 )
 from parallel_hnsw_tpu_torch.search import auto_query_block
 from parallel_hnsw_tpu_torch.search import search as graph_search
+from parallel_hnsw_tpu_torch.native import load_vecio
 from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
+from parallel_hnsw_tpu_torch.utils.datasets import _read_vecs_numpy, read_vecs, vector_chunks
 from parallel_hnsw_tpu_torch.utils.trace import TRACER, enable_tracing
 
 # Published peaks of one H100 SXM at its full 700 W: the bounds are stated
@@ -873,6 +901,74 @@ def _zero_launches() -> None:
             counts[key] = 0
 
 
+def corpus_through_fvecs(drawn: np.ndarray) -> np.ndarray:
+    """Phase 5's corpus through the reference's file format: ``drawn`` goes
+    to an ``.fvecs`` file (404 bytes a row at D = 100) in a temporary
+    directory and comes back through ``read_vecs`` (the native reader, 8
+    threads), which must give it byte for byte, as must the numpy reader
+    and ``vector_chunks``.  Returns the rows read."""
+    n, d = drawn.shape
+    tmp = tempfile.mkdtemp(prefix="hnsw_smoke_fvecs_")
+    path = os.path.join(tmp, "corpus.fvecs")
+    try:
+        rows = np.empty((n, d + 1), np.int32)
+        rows[:, 0] = d
+        rows[:, 1:] = drawn.view(np.int32)
+        tw = time.perf_counter()
+        rows.tofile(path)
+        write_s = time.perf_counter() - tw
+        del rows
+        size = os.path.getsize(path)
+        assert size == n * (4 + 4 * d)
+        tb = time.perf_counter()
+        load_vecio()
+        build_s = time.perf_counter() - tb
+        tr = time.perf_counter()
+        read = read_vecs(path, n_threads=8)
+        read_s = time.perf_counter() - tr
+        plain = _read_vecs_numpy(path, ".fvecs", 4, 0, -1)
+        chunks = list(vector_chunks(path, 65536))
+    finally:
+        shutil.rmtree(tmp)
+    bits = drawn.view(np.int32)
+    assert read.dtype == np.float32 and read.shape == drawn.shape
+    assert np.array_equal(read.view(np.int32), bits), "read_vecs changed the corpus"
+    assert np.array_equal(plain.view(np.int32), bits), "the numpy reader changed the corpus"
+    assert [len(c) for c in chunks] == [min(65536, n - s) for s in range(0, n, 65536)]
+    assert np.array_equal(np.concatenate(chunks).view(np.int32), bits), "vector_chunks changed the corpus"
+    print(f"fvecs: {n} x {d} rows, {size / 1e6:.2f} MB written in {write_s:.3f} s; vecio built "
+          f"(g++) or loaded in {build_s:.3f} s; read_vecs on 8 threads {read_s:.4f} s = "
+          f"{size / read_s / 1e9:.3f} GB/s from the page cache; byte-equal to the drawn rows, "
+          f"to the numpy reader and to {len(chunks)} vector_chunks of 65,536")
+    return read
+
+
+class ScaledSource(NamedTuple):
+    """A storage type of the user's (the JAX package's API test's): rows
+    scaled on the way out.  It registers ``source_get`` and nothing else."""
+
+    vectors: torch.Tensor
+    scale: float
+
+    @property
+    def dim(self):
+        return self.vectors.shape[1]
+
+    @property
+    def count(self):
+        return self.vectors.shape[0]
+
+    @property
+    def device(self):
+        return self.vectors.device
+
+
+@source_get.register
+def _(source: ScaledSource, ids):
+    safe = torch.clamp(ids, 0, source.vectors.shape[0] - 1)
+    return source.vectors[safe.long()] * source.scale
+
+
 def flat_scan_phase(vecs: torch.Tensor) -> dict:
     """The flat-scan path at full width; returns each kernel's launch count
     in ONE pass of the path: one ``search_exact(fast=True)`` call per size
@@ -1111,6 +1207,20 @@ def small_index_phase(vecs: torch.Tensor) -> None:
     hits = (nn_ids[:, :, None] == gt[:, None, :]).any(-1).mean()
     print(f"knn(10) over {SMALL_COUNT} rows: {knn_s:.3f} s, recall@10 against the exact scan {hits:.5f}; "
           f"improve_neighbors dropped the slabs")
+
+    custom = ScaledSource(vectors=source.vectors, scale=1.0)
+    tb = time.perf_counter()
+    scaled = Hnsw.generate(custom, metric=Metric.NORMALIZED_COSINE, seed=3)
+    torch.cuda.synchronize()
+    custom_s = time.perf_counter() - tb
+    assert scaled.layers[-1].neighbors.is_cuda
+    c_ids, c_d = scaled.search(source.vectors)
+    first = float((c_ids[:, 0] == torch.arange(SMALL_COUNT, device=c_ids.device)).float().mean())
+    print(f"custom source (ScaledSource, source_get alone) at {SMALL_COUNT} x {DIM}: built in "
+          f"{custom_s:.3f} s, layers {[l.node_count for l in scaled.layers]}; each row found first: "
+          f"{first:.5f}")
+    assert bool(torch.isfinite(c_d[:, :10]).all())
+    assert first == 1.0, f"the custom source's index found {first} of its rows first"
 
 
 def persistence_phase(hnsw: Hnsw, queries: torch.Tensor, device) -> None:
@@ -2042,6 +2152,199 @@ def sharded_pq_phase(device, vecs: torch.Tensor, c4: dict) -> tuple:
                   "flat_recall_at_10": f_recall}
 
 
+# -- phase 12: graph diagnostics ----------------------------------------------
+
+INF_I32 = analysis.INF_I32
+# Supers whose BFS tables the CPU recomputes on layer 1 (two chunks of 64):
+# the CPU's fixpoint takes ~1.6 s a chunk there, the 22 chunks ~36 s a call.
+CPU_CHECK_SUPERS = 128
+# Closest supers found by the card's and the CPU's fp32 products may differ
+# where two supers lie within a few ulps of a node (distances ~1, ulp 6e-8).
+PARTITION_TIE_ATOL = 1e-6
+
+
+def _ms(fn):
+    """``(fn(), host-clock ms)``: the diagnostics return numpy arrays, so the
+    card's work and the copy to the host are inside."""
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _bfs_iterations(since: int) -> list:
+    """Iterations of each BFS fixpoint traced since event ``since``."""
+    return [int(e.counters["iterations"]) for e in TRACER.events[since:] if e.name == "bfs_fixpoint"]
+
+
+def dijkstra_reference(layer: Layer, supers: np.ndarray):
+    """``(hops, index_sum)`` of every node from its nearest super by scipy's
+    Dijkstra over the layer's edges, unit weights and then weight slot + 1:
+    an independent reference for ``analysis.node_distances``.  A CSR matrix
+    sums duplicate entries, so a ``(src, dst)`` pair that a row holds twice
+    keeps its smallest slot first."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    nodes = layer.nodes.cpu().numpy()
+    nb = layer.neighbors.cpu().numpy()
+    n, m = nb.shape
+    src = np.repeat(np.arange(n), m)
+    dst = nb.reshape(-1).astype(np.int64)
+    cost = np.tile(np.arange(1, m + 1), n)
+    ok = (dst >= 0) & (dst < n)
+    src, dst, cost = src[ok], dst[ok], cost[ok]
+    order = np.lexsort((cost, dst, src))
+    src, dst, cost = src[order], dst[order], cost[order]
+    first = np.ones(len(src), bool)
+    first[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+    src, dst, cost = src[first], dst[first], cost[first]
+    pos = np.searchsorted(nodes, supers)
+    found = (pos < n) & (nodes[np.minimum(pos, n - 1)] == supers)
+    out = []
+    for w in (np.ones_like(cost), cost):
+        graph = scipy.sparse.csr_matrix((w.astype(np.float64), (src, dst)), shape=(n, n))
+        d = scipy.sparse.csgraph.dijkstra(graph, directed=True, indices=pos[found], min_only=True)
+        out.append(np.where(np.isinf(d), INF_I32, d).astype(np.int64))
+    return out, int(first.sum()), int(len(first) - first.sum())
+
+
+def _cpu_layer(layer: Layer) -> Layer:
+    return Layer(nodes=layer.nodes.cpu(), neighbors=layer.neighbors.cpu())
+
+
+def _node_distances_checked(label: str, layer: Layer, supers: np.ndarray) -> tuple:
+    """``node_distances`` on the card, twice (bit for bit), against the CPU
+    run of the same code and scipy's Dijkstra; prints iterations and ms."""
+    since = len(TRACER.events)
+    (hops, isum), card_ms = _ms(lambda: analysis.node_distances(layer, supers))
+    (hops2, isum2), again_ms = _ms(lambda: analysis.node_distances(layer, supers))
+    iterations = _bfs_iterations(since)
+    assert np.array_equal(hops, hops2) and np.array_equal(isum, isum2), "node_distances moved between runs"
+    (c_hops, c_isum), cpu_ms = _ms(lambda: analysis.node_distances(_cpu_layer(layer), supers))
+    assert np.array_equal(hops, c_hops) and np.array_equal(isum, c_isum), "card and CPU BFS differ"
+    ts = time.perf_counter()
+    (want_h, want_s), edges, dups = dijkstra_reference(layer, supers)
+    scipy_ms = (time.perf_counter() - ts) * 1e3
+    assert np.array_equal(hops, want_h), "hops differ from scipy's Dijkstra"
+    assert np.array_equal(isum, want_s), "index_sum differs from scipy's Dijkstra"
+    unreachable = int((hops == INF_I32).sum())
+    print(f"{label}: node_distances over {layer.node_count} nodes x {layer.neighborhood_size} slots "
+          f"({edges} distinct edges, {dups} repeated), {len(supers)} supers: {iterations[0]} iterations, "
+          f"{card_ms:.3f} ms on the card ({again_ms:.3f} ms again, equal bit for bit), {cpu_ms:.3f} ms "
+          f"on the CPU (equal); scipy dijkstra {scipy_ms:.1f} ms, equal in hops and index_sum; "
+          f"max hops {int(hops[hops < INF_I32].max())}, unreachable {unreachable}")
+    return hops, isum, {"iterations": iterations[0], "card_ms": card_ms, "cpu_ms": cpu_ms,
+                        "unreachable": unreachable}
+
+
+def _check_partition(card: np.ndarray, cpu: np.ndarray, layer: Layer, source, metric, vectors) -> int:
+    """The closest supers found on the card and on the CPU agree but where a
+    node lies within ``PARTITION_TIE_ATOL`` of both (float64 distances).
+    Returns the count of such nodes."""
+    differ = np.nonzero(card != cpu)[0]
+    if len(differ):
+        feats = source_get(source, layer.nodes[torch.from_numpy(differ).to(layer.nodes.device)])
+        sup = source_get(source, torch.from_numpy(np.asarray(vectors, np.int32)).to(feats.device))
+        d = pairwise_distance(feats.double(), sup.double(), metric).cpu().numpy()
+        rows = np.arange(len(differ))
+        gap = np.abs(d[rows, card[differ]] - d[rows, cpu[differ]])
+        assert gap.max() <= PARTITION_TIE_ATOL, f"closest supers differ beyond a tie: {gap.max()}"
+    return len(differ)
+
+
+def diagnostics_phase(hnsw: Hnsw) -> dict:
+    """Phase 12: the BFS diagnostics on phase 5's index (see the module's
+    docstring).  Returns the numbers for the summary line."""
+    numbers = {}
+    bottom, supers0 = hnsw.get_layer(0), hnsw.supers_for_layer(0)
+    (hops, isum), method_ms = _ms(lambda: hnsw.node_distances_for_layer(0))
+    _, _, numbers["layer0"] = _node_distances_checked("layer 0", bottom, supers0)
+    assert np.array_equal(hops, analysis.node_distances(bottom, supers0)[0])
+    promote, promote_ms = _ms(lambda: hnsw.discover_nodes_to_promote(0))
+    assert np.array_equal(promote, np.nonzero(hops == INF_I32)[0]), (
+        "discover_nodes_to_promote is not the unreachable nodes, worst first")
+    print(f"node_distances_for_layer(0) {method_ms:.3f} ms; discover_nodes_to_promote(0) "
+          f"{promote_ms:.3f} ms: {len(promote)} nodes, the unreachable ones")
+
+    chunk = supers0[:64]
+    since = len(TRACER.events)
+    (c_h, c_s), chunk_ms = _ms(lambda: analysis.per_super_node_distances(bottom, chunk))
+    chunk_iters = _bfs_iterations(since)[0]
+    assert np.array_equal(c_h.min(0), analysis.node_distances(bottom, chunk)[0])
+    n_chunks = -(-len(supers0) // 64)
+    print(f"per_super_node_distances over layer 0, one chunk of 64 supers ([64 x "
+          f"{bottom.node_count * bottom.neighborhood_size}] int32 temporaries): {chunk_iters} iterations, "
+          f"{chunk_ms:.3f} ms; all {n_chunks} chunks would take ~{chunk_ms * n_chunks / 1e3:.1f} s")
+    numbers["layer0_chunk_ms"] = chunk_ms
+
+    layer1, supers1 = hnsw.get_layer(1), hnsw.supers_for_layer(1)
+    cpu1 = _cpu_layer(layer1)
+    hops1, isum1, numbers["layer1"] = _node_distances_checked("layer 1", layer1, supers1)
+    source, metric = hnsw.compute_source, hnsw.metric
+    cpu_source = DenseSource(source.vectors.cpu())
+    few = supers1[:CPU_CHECK_SUPERS]
+
+    since = len(TRACER.events)
+    (t_h, t_s), ps_ms = _ms(lambda: analysis.per_super_node_distances(layer1, supers1))
+    ps_iters = _bfs_iterations(since)
+    assert t_h.shape == (len(supers1), layer1.node_count)
+    assert np.array_equal(t_h.min(0), hops1) and np.array_equal(t_s.min(0), isum1), (
+        "the per-super tables' minimum is not node_distances")
+    (f_h, f_s), f_ms = _ms(lambda: analysis.per_super_node_distances(cpu1, few))
+    assert np.array_equal(t_h[:len(few)], f_h) and np.array_equal(t_s[:len(few)], f_s)
+
+    (mn, mn_ms) = _ms(lambda: analysis.multi_node_distances(layer1, supers1, k=5))
+    assert mn[0].shape == (layer1.node_count, 5) and np.array_equal(mn[1][:, 0], hops1)
+    want = analysis.multi_node_distances(cpu1, few, k=5)
+    for g, w in zip(analysis.multi_node_distances(layer1, few, k=5), want):
+        assert np.array_equal(g, w), "multi_node_distances: card and CPU differ"
+
+    part, part_ms = _ms(lambda: analysis.group_nodes_by_vectors(layer1, source, metric, supers1))
+    c_part, c_part_ms = _ms(lambda: analysis.group_nodes_by_vectors(cpu1, cpu_source, metric, supers1))
+    ties = _check_partition(part, c_part, layer1, source, metric, supers1)
+
+    (cs_h, cs_s), cs_ms = _ms(lambda: analysis.node_distances_from_closest_super(
+        layer1, source, metric, supers1))
+    rows = np.arange(layer1.node_count)
+    assert np.array_equal(cs_h, t_h[part, rows]) and np.array_equal(cs_s, t_s[part, rows])
+    nc, nc_ms = _ms(lambda: analysis.nodes_not_connected_to_super(layer1, source, metric, supers1))
+    assert np.array_equal(nc, np.nonzero(cs_h == INF_I32)[0])
+    # the same two on the CPU, on the first supers only
+    g_few = analysis.group_nodes_by_vectors(layer1, source, metric, few)
+    c_few = analysis.group_nodes_by_vectors(cpu1, cpu_source, metric, few)
+    ties += _check_partition(g_few, c_few, layer1, source, metric, few)
+    same = g_few == c_few
+    (k_h, k_s) = analysis.node_distances_from_closest_super(layer1, source, metric, few)
+    (w_h, w_s), cs_cpu_ms = _ms(lambda: analysis.node_distances_from_closest_super(
+        cpu1, cpu_source, metric, few))
+    assert np.array_equal(k_h[same], w_h[same]) and np.array_equal(k_s[same], w_s[same])
+    assert np.array_equal(k_h, f_h[g_few, rows]) and np.array_equal(k_s, f_s[g_few, rows])
+    nc_few = analysis.nodes_not_connected_to_super(layer1, source, metric, few)
+    nc_cpu = analysis.nodes_not_connected_to_super(cpu1, cpu_source, metric, few)
+    assert set(np.setxor1d(nc_few, nc_cpu)) <= set(np.nonzero(~same)[0])
+    print(f"layer 1 ({layer1.node_count} nodes, {len(supers1)} supers, {len(ps_iters)} chunks of 64, "
+          f"{min(ps_iters)}-{max(ps_iters)} iterations a chunk): per_super_node_distances "
+          f"{ps_ms:.3f} ms (its minimum is node_distances; the CPU's first {len(few)} supers: "
+          f"{f_ms:.3f} ms, equal); multi_node_distances(k=5) {mn_ms:.3f} ms; "
+          f"group_nodes_by_vectors {part_ms:.3f} ms (CPU {c_part_ms:.3f} ms; {ties} near-ties "
+          f"within {PARTITION_TIE_ATOL}); node_distances_from_closest_super {cs_ms:.3f} ms "
+          f"(CPU, first {len(few)} supers, {cs_cpu_ms:.3f} ms); nodes_not_connected_to_super "
+          f"{nc_ms:.3f} ms: {len(nc)} nodes; each equal to the CPU run")
+    numbers.update({"per_super_ms": ps_ms, "multi_node_ms": mn_ms, "group_ms": part_ms,
+                    "closest_super_ms": cs_ms, "not_connected_ms": nc_ms,
+                    "not_connected": int(len(nc)), "partition_ties": ties})
+
+    # from the entry (node 0 of the top layer) to the top layer's other nodes
+    check = list(range(1, hnsw.layers[0].node_count))
+    reach, reach_ms = _ms(lambda: hnsw.reachables_from_node_for_layer(0, 0, check))
+    assert reach == analysis.reachables_from(_cpu_layer(hnsw.layers[0]), 0, check)
+    assert reach[0] == (0, 0) and sorted(n for n, _ in reach[1:]) == sorted(set(n for n, _ in reach[1:]))
+    print(f"reachables_from_node_for_layer(top, entry): {len(reach) - 1} of the top layer's "
+          f"{len(check)} other nodes in {reach_ms:.3f} ms")
+    return numbers
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--count", type=int, default=200_000)
@@ -2083,8 +2386,10 @@ def main() -> None:
     gather_distance = check_gather_distance_kernel(device)
     t = _phase("4 gather kernel check", t)
 
-    # 5. build
-    vecs = random_unit_corpus(args.count + QUERIES, DIM, seed=42, device=device).vectors
+    # 5. the corpus through the reference's file format, then the build
+    drawn = random_unit_corpus(args.count + QUERIES, DIM, seed=42, device="cpu").vectors.numpy()
+    vecs = torch.from_numpy(corpus_through_fvecs(drawn)).to(device)
+    del drawn
     source = DenseSource(vectors=vecs[: args.count])
     queries = vecs[args.count :]
     enable_tracing(log=None)
@@ -2162,7 +2467,6 @@ def main() -> None:
 
     # 8. persistence
     persistence_phase(hnsw, queries[:PERSIST_QUERIES], device)
-    del hnsw
     t = _phase("8 persistence", t)
 
     # 9. flat scan
@@ -2198,15 +2502,22 @@ def main() -> None:
     c5_launches, c5_kernels, c5_numbers = config5_phase(device)
     t = _phase("11b out-of-core sharded PQ at config 5's code layout", t)
     pq_sharded_launches, pq_sharded_numbers = sharded_pq_phase(device, c4_vecs, c4_numbers)
-    _phase("11c in-core sharded PQ with code graphs", t)
+    t = _phase("11c in-core sharded PQ with code graphs", t)
     sharded_path = {k: sharded_launches[k] + c5_launches[k] + pq_sharded_launches[k]
                     for k in sharded_launches}
     print(f"launches in one pass of the sharded path (11a-11c): {sharded_path}")
     for name in ("pairwise_distance", "binned_scan", "row_gather", "gather_distance"):
         assert sharded_path[name] > 0, f"the sharded path did not launch {name}"
-    _phase("total", t0)
     print("sharded summary: " + json.dumps({"11a": dense_numbers, "11b": c5_numbers,
                                             "11c": pq_sharded_numbers}))
+
+    # 12. graph diagnostics on phase 5's index, which is still alive
+    diagnostics, diagnostics_launches = _counted(lambda: diagnostics_phase(hnsw))
+    print(f"launches in phase 12: {diagnostics_launches} (the row gathers of group_nodes_by_vectors)")
+    print(f"{smi}; graph diagnostics summary: " + json.dumps(diagnostics))
+    del hnsw
+    t = _phase("12 graph diagnostics", t)
+    _phase("total", t0)
 
     print(json.dumps({"kernels": [
         {

@@ -11,8 +11,12 @@ quantization, ADC tables, flat scan with exact rerank); out-of-core
 sources (``MemmapSource``: f32 rows on the host, gathered in bounded
 pieces); the sharded indexes over a mesh of devices
 (``parallel.ShardedHnsw``, ``parallel.ShardedQuantizedHnsw`` in core and out
-of core); and index persistence, dense, quantized and sharded (``io``, the
-JAX package's directory format).  The kernels are hand-written CUDA for
+of core); index persistence, dense, quantized and sharded (``io``, the
+JAX package's directory format); the dataset readers
+(``utils.datasets.read_vecs`` / ``vector_chunks`` over a native mmap reader
+built with ``g++``) and the BFS graph diagnostics
+(``analysis.node_distances`` and its family,
+``Hnsw.node_distances_for_layer``).  The kernels are hand-written CUDA for
 Hopper, built with ``nvcc`` at first use: pairwise distances
 (``csrc/pairwise_distance.cu``), the binned and folded distance scans
 (``csrc/binned_scan.cu``), the row gather (``csrc/row_gather.cu``) and the

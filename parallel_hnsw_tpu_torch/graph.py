@@ -12,7 +12,9 @@ or a :class:`MemmapSource` (f32 rows on the host, out of core).  Every tensor
 of an index lives on its device source's device.  The functions that take a
 source (:func:`source_get`, :func:`source_distance`,
 :func:`source_effective_width`, :func:`materialize_source`) dispatch on its
-type, so a source kind they do not know raises.
+type.  A storage type of the user's registers :func:`source_get` alone (the
+reference's ``Comparator`` trait, src/lib.rs:53-74); the other three then
+take their defaults, which are built on it.
 """
 
 from __future__ import annotations
@@ -165,9 +167,15 @@ def source_get(source, ids: torch.Tensor) -> torch.Tensor:
 
     Ids are clipped into range (the row-gather kernel does not check them);
     EMPTY_ID gathers a real row, so callers mask distances of invalid slots
-    to +inf.  Dispatches on the source's type, as the JAX package does; a new
-    kind registers here and with :func:`source_distance`,
-    :func:`source_effective_width` and :func:`materialize_source`."""
+    to +inf.
+
+    The extension seam, as in the JAX package: register a custom storage
+    with ``@source_get.register`` on a type that exposes ``dim``, ``count``
+    and ``device`` (where its rows live; the JAX package needs no device).
+    :func:`source_distance`, :func:`source_effective_width` and
+    :func:`materialize_source` take defaults built on this function for any
+    type that registered nothing with them; a type unknown here raises, in
+    those three too."""
     raise TypeError(f"unknown source type {type(source)}")
 
 
@@ -218,6 +226,19 @@ def reconstruct(codebook: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return sub.reshape(*codes.shape[:-1], nsub * dsub)
 
 
+def _known(source) -> None:
+    """Raise as :func:`source_get` does for a type that registered nothing
+    with it: the defaults below are built on it."""
+    if source_get.dispatch(type(source)) is source_get.dispatch(object):
+        raise TypeError(f"unknown source type {type(source)}")
+
+
+def _gathered_distance(source, queries, ids, metric, **device):
+    inside = (ids >= 0) & (ids < source.count)
+    rows = source_get(source, torch.where(inside, ids, 0), **device)
+    return torch.where(inside, batched_distance(queries, rows, metric), float("inf"))
+
+
 @functools.singledispatch
 def source_distance(
     source, queries: torch.Tensor, ids: torch.Tensor, metric: Metric
@@ -227,31 +248,20 @@ def source_distance(
     ids))`` where an id is a vector of the source, ``+inf`` where it is not
     (``EMPTY_ID``).
 
-    The rows of a dense source are one tensor, so the gather and the
-    distances are one kernel on the card
-    (:func:`~parallel_hnsw_tpu_torch.ops.cuda_gather.gather_distance`): the
-    gathered rows never reach device memory.  A :class:`PqSource` that
-    ``Hnsw.compute_source`` did not densify reconstructs the rows with
-    :func:`source_get`; a :class:`MemmapSource` gathers them on the host and
-    copies them to the queries' device; both then take
-    ``batched_distance``."""
-    raise TypeError(f"unknown source type {type(source)}")
+    That pair is the default, which a :class:`PqSource` that
+    ``Hnsw.compute_source`` did not densify takes (it reconstructs the rows)
+    and so does any source type of the user's.  The rows of a dense source
+    are one tensor, so the gather and the distances are one kernel on the
+    card (:func:`~parallel_hnsw_tpu_torch.ops.cuda_gather.gather_distance`):
+    the gathered rows never reach device memory.  A :class:`MemmapSource`
+    gathers its rows on the host and copies them to the queries' device."""
+    _known(source)
+    return _gathered_distance(source, queries, ids, metric)
 
 
 @source_distance.register
 def _(source: DenseSource, queries, ids, metric):
     return gather_distance(queries, source.vectors, ids, metric)
-
-
-def _gathered_distance(source, queries, ids, metric, **device):
-    inside = (ids >= 0) & (ids < source.count)
-    rows = source_get(source, torch.where(inside, ids, 0), **device)
-    return torch.where(inside, batched_distance(queries, rows, metric), float("inf"))
-
-
-@source_distance.register
-def _(source: PqSource, queries, ids, metric):
-    return _gathered_distance(source, queries, ids, metric)
 
 
 @source_distance.register
@@ -262,15 +272,11 @@ def _(source: MemmapSource, queries, ids, metric):
 @functools.singledispatch
 def source_effective_width(source) -> int:
     """Bytes-per-vector proxy for block-size budgeting.  The JAX package pads
-    every gathered row to 128 lanes (a PQ reconstruction gathers ``[*, Dsub]``
-    rows, each padded to 128), kept here so both packages cut the same
-    blocks."""
-    raise TypeError(f"unknown source type {type(source)}")
-
-
-@source_effective_width.register(DenseSource)
-@source_effective_width.register(MemmapSource)
-def _(source) -> int:
+    every gathered row to 128 lanes, kept here so both packages cut the same
+    blocks: ``max(dim, 128)``, the default for every source type but
+    :class:`PqSource`, whose reconstruction gathers ``[*, Dsub]`` rows, each
+    padded to 128."""
+    _known(source)
     return max(source.dim, 128)
 
 
@@ -286,21 +292,18 @@ def _(source: PqSource) -> int:
 @functools.singledispatch
 def materialize_source(source, block: int = 16384, device=None) -> torch.Tensor:
     """The source as a dense f32 ``[N, D]`` tensor: a DenseSource as it is
-    (no copy), a PqSource reconstructed in row blocks on its device, a
-    MemmapSource copied in row blocks to ``device`` (default: the card; this
-    puts the whole corpus on it, as the JAX package's does)."""
-    raise TypeError(f"unknown source type {type(source)}")
+    (no copy), a MemmapSource copied in row blocks to ``device`` (default: the
+    card; this puts the whole corpus on it, as the JAX package's does), any
+    other source (a PqSource, a type of the user's) gathered in row blocks
+    through :func:`source_get` on its own device."""
+    _known(source)
+    ids = torch.arange(source.count, dtype=ID_DTYPE, device=source.device)
+    return gather_features(source, ids, block)
 
 
 @materialize_source.register
 def _(source: DenseSource, block: int = 16384, device=None) -> torch.Tensor:
     return source.vectors
-
-
-@materialize_source.register
-def _(source: PqSource, block: int = 16384, device=None) -> torch.Tensor:
-    ids = torch.arange(source.count, dtype=ID_DTYPE, device=source.device)
-    return gather_features(source, ids, block)
 
 
 @materialize_source.register

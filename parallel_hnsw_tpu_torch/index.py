@@ -4,7 +4,9 @@
 API parity with the reference's ``Hnsw<C>`` (src/lib.rs:585-1686): generate,
 search[_upto,_instrumented], knn, threshold_nn, improve_index,
 improve_neighbors, promote_at_layer, stochastic_recall[_at],
-discover_unreachable_vectors, extend_layer, plus persistence in
+discover_unreachable_vectors, extend_layer, the BFS diagnostics
+(node_distances_for_layer, discover_nodes_to_promote,
+reachables_from_node_for_layer), plus persistence in
 :mod:`parallel_hnsw_tpu_torch.io`.
 """
 
@@ -17,6 +19,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from parallel_hnsw_tpu_torch import analysis as _analysis
 from parallel_hnsw_tpu_torch import build as _build
 from parallel_hnsw_tpu_torch import optimize as _optimize
 from parallel_hnsw_tpu_torch import promote as _promote
@@ -576,6 +579,21 @@ class Hnsw:
         )
         self._invalidate_hop_slabs()
         return recall
+
+    # -- diagnostics (reference: src/lib.rs:279-548, 977-1000) ---------------
+
+    def node_distances_for_layer(self, layer_id: int) -> Tuple[np.ndarray, np.ndarray]:
+        """BFS (hops, index_sum) per node of a from-bottom layer id
+        (reference: node_distances_for_layer, src/lib.rs:986-990)."""
+        return _analysis.node_distances(self.get_layer(layer_id), self.supers_for_layer(layer_id))
+
+    def discover_nodes_to_promote(self, layer_id: int) -> np.ndarray:
+        return _analysis.discover_nodes_to_promote(
+            self.get_layer(layer_id), self.supers_for_layer(layer_id)
+        )
+
+    def reachables_from_node_for_layer(self, layer_id_from_top: int, node: int, check):
+        return _analysis.reachables_from(self.layers[layer_id_from_top], node, check)
 
     # -- repair plumbing -----------------------------------------------------
 

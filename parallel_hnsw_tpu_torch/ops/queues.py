@@ -41,6 +41,12 @@ def empty_queue(
     return ids, dists
 
 
+def queue_len(dists: torch.Tensor) -> torch.Tensor:
+    """Number of live entries (reference: len() = partition_point over MAX,
+    priority_queue.rs:56-59), int32 as in the JAX package."""
+    return torch.isfinite(dists).sum(-1, dtype=torch.int32)
+
+
 def sort_queue(ids: torch.Tensor, dists: torch.Tensor, *payload: torch.Tensor):
     """Sort ascending by ``(dist, id)``; payload tensors are permuted along."""
     perm = lexsort_perm(dists, ids)

@@ -775,3 +775,103 @@ def test_sharded_indexes_on_the_card(device, tmp_path):
     p_ids, p_d = sq.search_exact(q, k=10)
     assert float((p_ids[:, 0] == torch.arange(500, device=device)).float().mean()) >= 0.99
     assert float(p_d[:, 0].abs().max()) < 1e-3
+
+
+# -- the graph diagnostics, a source of the user's and the dataset reader -----
+
+
+def _cut_layer(n, m, device, seed=4):
+    """A random layer of ``n`` nodes (vector ids 0, 2, 4, ...) and ``m``
+    slots, with ``EMPTY_ID`` slots, a repeated neighbor and a few nodes that
+    no edge reaches."""
+    from parallel_hnsw_tpu_torch.constants import EMPTY_ID
+    from parallel_hnsw_tpu_torch.graph import make_layer
+
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(0, n, (n, m)).astype(np.int32)
+    nb[rng.random((n, m)) < 0.1] = EMPTY_ID
+    nb[:, 1] = nb[:, 0]
+    nb[np.isin(nb, [3, 4, 5])] = EMPTY_ID
+    return make_layer(np.arange(0, 2 * n, 2), nb, device=device)
+
+
+def test_node_distances_on_the_card(device):
+    """The BFS fixpoints on the card equal the CPU run of the same code."""
+    layer = _cut_layer(20_000, 16, device)
+    cpu = type(layer)(layer.nodes.cpu(), layer.neighbors.cpu())
+    # vector ids of nodes, one outside the layer (odd), nodes 3-5 excluded
+    supers = np.array([0, 14, 200, 7_000, 39_998, 1], np.int32)
+    got = analysis.node_distances(layer, torch.from_numpy(supers).to(device))
+    want = analysis.node_distances(cpu, supers)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[0] == np.iinfo(np.int32).max).sum() >= 3
+    np.testing.assert_array_equal(analysis.discover_nodes_to_promote(layer, supers),
+                                  analysis.discover_nodes_to_promote(cpu, supers))
+    many = np.arange(0, 4000, 22, dtype=np.int32)  # 182 supers: three chunks of 64
+    for g, w in zip(analysis.per_super_node_distances(layer, many),
+                    analysis.per_super_node_distances(cpu, many)):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(analysis.multi_node_distances(layer, many), analysis.multi_node_distances(cpu, many)):
+        np.testing.assert_array_equal(g, w)
+
+
+class _ScaledSource:
+    """A storage type of the user's, registered with ``source_get`` alone."""
+
+    def __init__(self, vectors, scale):
+        self.vectors, self.scale = vectors, scale
+        self.dim, self.count, self.device = vectors.shape[1], vectors.shape[0], vectors.device
+
+
+def _register_scaled_source():
+    from parallel_hnsw_tpu_torch.graph import source_get
+
+    @source_get.register
+    def _(source: _ScaledSource, ids):
+        safe = torch.clamp(ids, 0, source.count - 1)
+        return source.vectors[safe.long()] * source.scale
+
+
+def test_custom_source_on_the_card(device):
+    """A source of the user's builds and searches on the card.  Over small
+    integers under squared euclidean every distance is exact, so its index
+    equals the dense source's on the card (same draws), and each row finds
+    itself first on the card and on the CPU."""
+    _register_scaled_source()
+    grid = np.random.default_rng(23).integers(-4, 5, size=(600, 16)).astype(np.float32)
+    rows = torch.from_numpy(grid)
+    indexes = []
+    for where in (device, torch.device("cpu")):
+        src = _ScaledSource(rows.to(where), 1.0)
+        h = Hnsw.generate(src, metric=Metric.SQUARED_EUCLIDEAN, seed=3)
+        ids, _ = h.search(src.vectors)
+        assert ids.device.type == where.type
+        np.testing.assert_array_equal(ids[:, 0].cpu().numpy(), np.arange(600))
+        indexes.append(h)
+    dense = Hnsw.generate(DenseSource(rows.to(device)), metric=Metric.SQUARED_EUCLIDEAN, seed=3)
+    for a, b in zip(indexes[0].layers, dense.layers):
+        assert torch.equal(a.nodes, b.nodes) and torch.equal(a.neighbors, b.neighbors)
+
+
+def test_read_vecs_into_a_card_build(device, tmp_path):
+    """Rows read from an fvecs file build on the card the index that the same
+    rows, drawn, build there."""
+    from parallel_hnsw_tpu_torch.utils.datasets import read_vecs
+
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1, 1, (3000, 24)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    buf = np.empty((3000, 25), np.int32)
+    buf[:, 0] = 24
+    buf[:, 1:] = x.view(np.int32)
+    buf.tofile(tmp_path / "x.fvecs")
+    read = read_vecs(str(tmp_path / "x.fvecs"))
+    assert read.dtype == np.float32 and np.array_equal(read.view(np.int32), x.view(np.int32))
+    built = [Hnsw.generate(DenseSource(torch.from_numpy(r).to(device)),
+                           metric=Metric.NORMALIZED_COSINE, seed=1) for r in (read, x)]
+    for a, b in zip(*(h.layers for h in built)):
+        assert torch.equal(a.nodes, b.nodes) and torch.equal(a.neighbors, b.neighbors)
+    q = torch.from_numpy(read[:200]).to(device)
+    ids, _ = built[0].search(q)
+    assert ids.device == q.device and float((ids[:, 0] == torch.arange(200, device=device)).float().mean()) >= 0.99

@@ -365,6 +365,11 @@ def test_import_leaves_jax_out():
         "import parallel_hnsw_tpu_torch.utils.data, parallel_hnsw_tpu_torch.utils.trace\n"
         "import parallel_hnsw_tpu_torch.ops.cuda_distance, parallel_hnsw_tpu_torch.ops.cuda_gather\n"
         "import parallel_hnsw_tpu_torch.ops.cuda_scan, parallel_hnsw_tpu_torch.routing\n"
+        "import parallel_hnsw_tpu_torch.pq, parallel_hnsw_tpu_torch.io\n"
+        "import parallel_hnsw_tpu_torch.parallel.sharded, parallel_hnsw_tpu_torch.analysis\n"
+        "import parallel_hnsw_tpu_torch.utils.datasets, parallel_hnsw_tpu_torch.native.build\n"
+        "from parallel_hnsw_tpu_torch.native import load_vecio\n"
+        "load_vecio()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'parallel_hnsw_tpu.')))\n"
         "assert not bad, bad\n"
     )

@@ -118,3 +118,15 @@ def test_empty_queue():
     ids, dists = tq.empty_queue(5, (2,))
     assert ids.shape == (2, 5) and ids.dtype == torch.int32
     assert bool((ids == EMPTY_ID).all()) and bool(torch.isinf(dists).all())
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 12), (2, 4, 9)])
+def test_queue_len_equals_jax(shape):
+    rng = np.random.default_rng(len(shape))
+    _, dists = _random_queue(rng, shape, 30)
+    dists[..., ::4] = -0.0  # a live entry at distance 0 counts
+    want = np.asarray(jq.queue_len(jnp.asarray(dists)))
+    got = tq.queue_len(torch.from_numpy(dists))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tq.queue_len(tq.empty_queue(5, (2,))[1]).tolist() == [0, 0]
