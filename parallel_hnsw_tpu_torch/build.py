@@ -316,7 +316,9 @@ def generate(
         level = layer_count - i - 1
         slice_length = min(length, total)
         m = bp.zero_layer_neighborhood_size if level == 0 else bp.neighborhood_size
-        with TRACER.span("generate_layer", level=level, nodes=slice_length):
+        # waits for the card at its end, so the layer's device time is its own
+        with TRACER.span("generate_layer", sync=torch.empty(0, device=device), level=level,
+                         nodes=slice_length):
             layer = generate_layer(
                 pool_draws(seed, slice_length, slice_length, 5 * m, device),
                 torch.as_tensor(vs[:slice_length], dtype=ID_DTYPE, device=device),

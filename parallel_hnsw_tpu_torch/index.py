@@ -452,6 +452,7 @@ class Hnsw:
         state = search_one_layer(
             layer, self.compute_source, self.metric, queries, init_ids, init_dists,
             probe_depth=sp.probe_depth, beam_width=sp.beam_width, max_hops=sp.max_hops,
+            layer_index=len(self.layers) - 1,
         )
         return state.ids, state.dists
 

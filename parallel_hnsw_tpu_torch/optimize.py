@@ -268,15 +268,15 @@ def improve_neighbors_upto(
         all_idempotent = True
         for lft in range(upto):
             monitor.alive()
-            with TRACER.span("relink_layer", layer_from_top=lft):
+            with TRACER.span("relink_layer", layer_from_top=lft) as closing:
                 layers, changed, tier = link_layer_to_better_neighbors(
                     layers, lft, source, metric, op.search,
                     exact_threshold=op.exact_relink_threshold,
                     fast_threshold=op.fast_relink_threshold,
                 )
+                closing["rows_changed"] = changed
             total_changed += changed
             all_idempotent &= tier in ("exact", "fast")
-            TRACER.count("relinked", rows=float(changed))
             if log:
                 log(f"layer {lft}: relinked {changed} ({tier})")
         if total_changed == 0 and have_measured:

@@ -14,11 +14,17 @@ plain version, a gather and one batched contraction), and merges via masked
 sort.  The hop loop runs on the host and reads
 ``done.all()`` after every hop (the JAX package keeps it inside
 ``lax.while_loop``); the instrumentation counters stay on the device.
+
+With ``TRACER`` enabled, each layer search is one ``search_layer`` span with
+the counters ``layer`` (from the top), ``queries`` (rows of the block),
+``hops``, ``dispatch_s`` (host seconds in the hop bodies) and ``wait_s``
+(host seconds in the termination reads, which wait for the card).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+import time
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +47,7 @@ from parallel_hnsw_tpu_torch.ops.queues import (
     sort_queue,
 )
 from parallel_hnsw_tpu_torch.params import SearchParams
+from parallel_hnsw_tpu_torch.utils.trace import TRACER
 
 
 class LayerSearchState(NamedTuple):
@@ -139,6 +146,28 @@ def _layer_step_fns(
     return cond, body
 
 
+def _timed_hops(
+    cond: Callable[[LayerSearchState], bool],
+    body: Callable[[LayerSearchState], LayerSearchState],
+    state: LayerSearchState,
+    clock: List[float],
+) -> LayerSearchState:
+    """The hop loop ``while cond: body``, adding the host seconds spent in
+    ``body`` to ``clock[0]`` and in ``cond`` to ``clock[1]`` (two clock reads
+    a hop)."""
+    now = time.perf_counter
+    t = now()
+    while True:
+        going = cond(state)
+        t_cond = now()
+        clock[1] += t_cond - t
+        if not going:
+            return state
+        state = body(state)
+        t = now()
+        clock[0] += t - t_cond
+
+
 def _fresh_state(
     ids: torch.Tensor, dists: torch.Tensor, expanded: torch.Tensor, probes: torch.Tensor,
     done: torch.Tensor,
@@ -165,10 +194,13 @@ def search_one_layer(
     beam_width: int,
     max_hops: int,
     slab: Optional[torch.Tensor] = None,
+    layer_index: int = 0,
 ) -> LayerSearchState:
     """Expand candidate queues inside one layer until convergence.
 
     Equivalent of ``Layer::closest_nodes`` (src/lib.rs:175-248), batched.
+    ``layer_index`` (the layer's place from the top of its stack) labels the
+    ``search_layer`` span.
     """
     q_count, cap = init_ids.shape
     dev = queries.device
@@ -182,8 +214,14 @@ def search_one_layer(
         torch.full((q_count,), probe_depth, dtype=torch.int32, device=dev),
         ~torch.any(init_ids != EMPTY_ID, dim=-1),
     )
-    while cond(state):
-        state = body(state)
+    if not TRACER.enabled:
+        while cond(state):
+            state = body(state)
+        return state
+    clock = [0.0, 0.0]
+    with TRACER.span("search_layer", layer=layer_index, queries=q_count) as closing:
+        state = _timed_hops(cond, body, state, clock)
+        closing.update(hops=state.hops, dispatch_s=clock[0], wait_s=clock[1])
     return state
 
 
@@ -196,6 +234,7 @@ def _host_layer_search(
     init_dists: torch.Tensor,
     sp: SearchParams,
     chunk_hops: int = 16,
+    layer_index: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layer search with convergence-tail compaction.
 
@@ -205,7 +244,35 @@ def _host_layer_search(
     batch, so stragglers stop taxing the finished majority.  The JAX package
     pads the compacted batch to a shape bucket to reuse compiled programs;
     nothing is compiled here, so the batch is exactly the unconverged rows.
+    With the tracer on, the whole layer search is one ``search_layer`` span.
     """
+    if not TRACER.enabled:
+        return _compacting_search(
+            layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, None
+        )[:2]
+    clock = [0.0, 0.0]
+    with TRACER.span("search_layer", layer=layer_index, queries=queries.shape[0]) as closing:
+        out_ids, out_dists, hops = _compacting_search(
+            layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, clock
+        )
+        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1])
+    return out_ids, out_dists
+
+
+def _compacting_search(
+    layer: Layer,
+    source: Source,
+    metric: Metric,
+    queries: torch.Tensor,
+    init_ids: torch.Tensor,
+    init_dists: torch.Tensor,
+    sp: SearchParams,
+    chunk_hops: int,
+    clock: Optional[List[float]],
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The chunked loop of :func:`_host_layer_search`; returns the found
+    queues and the hops run.  A ``clock`` gathers the hop loop's host
+    seconds as :func:`_timed_hops` does."""
     q, cap = init_ids.shape
     dev = queries.device
     max_hops = _auto_max_hops(cap, sp.max_hops)
@@ -228,8 +295,11 @@ def _host_layer_search(
             layer, source, metric, act_queries, cap, sp.beam_width, chunk_hops
         )
         state = state._replace(hops=0)
-        while cond(state):
-            state = body(state)
+        if clock is None:
+            while cond(state):
+                state = body(state)
+        else:
+            state = _timed_hops(cond, body, state, clock)
         hops_used += state.hops
         done = torch.ones_like(state.done) if hops_used >= max_hops else state.done
         fin = done.nonzero()[:, 0]
@@ -238,14 +308,13 @@ def _host_layer_search(
             out_dists[active[fin]] = state.dists[fin]
         keep = (~done).nonzero()[:, 0]
         if keep.numel() == 0:
-            break
+            return out_ids, out_dists, hops_used
         active = active[keep]
         act_queries = act_queries[keep]
         state = _fresh_state(
             state.ids[keep], state.dists[keep], state.expanded[keep], state.probes[keep],
             state.done[keep],
         )
-    return out_ids, out_dists
 
 
 def _entry_seed(
@@ -359,6 +428,7 @@ def search_stack(
             beam_width=sp.beam_width,
             max_hops=sp.max_hops,
             slab=slabs[i] if slabs is not None else None,
+            layer_index=i,
         )
         total_hops += state.hops
         total_evals = total_evals + state.evals
@@ -394,7 +464,7 @@ def search_host(
         is_bottom = i == len(layers) - 1
         init_ids, init_dists = _enter_layer(layer, cand_ids, cand_dists)
         found_ids, found_dists = _host_layer_search(
-            layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops
+            layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, layer_index=i
         )
         cand_ids, cand_dists = _exit_layer(
             layer, found_ids, found_dists, cand_ids, cand_dists, exclude,

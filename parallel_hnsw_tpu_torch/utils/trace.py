@@ -5,6 +5,9 @@
   it has retired; CUDA launches are asynchronous.  ``span(..., sync=x)``
   synchronizes the device of any CUDA tensor in ``x`` before closing the
   timer.
+* Spans are stamped with ``time.time_ns()``, the clock ``torch.profiler``
+  stamps its device events with, so a span can be laid against a device
+  trace (:meth:`Tracer.intervals`).
 * Tracing is zero-cost when disabled: the global tracer defaults to disabled
   and ``span`` short-circuits.
 """
@@ -15,19 +18,23 @@ import contextlib
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
 
 @dataclass
 class PhaseEvent:
-    """One completed phase: name, nesting depth, wall seconds, counters."""
+    """One completed phase: name, nesting depth, wall seconds, counters, and
+    its start and end in ``time.time_ns()`` nanoseconds (a counter event
+    starts and ends at once)."""
 
     name: str
     depth: int
     seconds: float
     counters: Dict[str, float] = field(default_factory=dict)
+    t0_ns: int = 0
+    t1_ns: int = 0
 
 
 def _sync(x: Any) -> None:
@@ -49,10 +56,10 @@ class Tracer:
 
     >>> t = Tracer(enabled=True)
     >>> with t.span("build"):
-    ...     with t.span("layer0", n_nodes=100):
-    ...         pass
-    >>> t.events[0].name, t.events[1].name
-    ('layer0', 'build')
+    ...     with t.span("layer0", n_nodes=100) as closing:
+    ...         closing["hops"] = 7
+    >>> t.events[0].name, t.events[1].name, t.events[0].counters
+    ('layer0', 'build', {'n_nodes': 100, 'hops': 7})
     """
 
     def __init__(self, enabled: bool = False, log=None):
@@ -62,20 +69,25 @@ class Tracer:
         self._depth = 0
 
     @contextlib.contextmanager
-    def span(self, name: str, sync: Any = None, **counters: float) -> Iterator[None]:
+    def span(self, name: str, sync: Any = None, **counters: float) -> Iterator[Dict[str, float]]:
+        """Time the block as one event with ``counters``.  The block is handed
+        a dict for the counters known only when it ends (hops, rows changed);
+        they are recorded with the others.  Disabled, the dict is dropped."""
         if not self.enabled:
-            yield
+            yield {}
             return
+        closing: Dict[str, float] = {}
         self._depth += 1
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         try:
-            yield
+            yield closing
         finally:
             if sync is not None:
                 _sync(sync)
-            dt = time.perf_counter() - t0
+            t1 = time.time_ns()
+            dt = (t1 - t0) * 1e-9
             self._depth -= 1
-            ev = PhaseEvent(name, self._depth, dt, dict(counters))
+            ev = PhaseEvent(name, self._depth, dt, {**counters, **closing}, t0, t1)
             self.events.append(ev)
             if self.log is not None:
                 pad = "  " * ev.depth
@@ -85,7 +97,14 @@ class Tracer:
     def count(self, name: str, **counters: float) -> None:
         """Record an instantaneous counter event (zero duration)."""
         if self.enabled:
-            self.events.append(PhaseEvent(name, self._depth, 0.0, dict(counters)))
+            now = time.time_ns()
+            self.events.append(PhaseEvent(name, self._depth, 0.0, dict(counters), now, now))
+
+    def intervals(self) -> List[Tuple[int, int, str]]:
+        """Every event as ``(t0_ns, t1_ns, name)``, the form of the
+        benchmark's host spans, so an idle gap in a device trace can be
+        labelled by the program's span around it."""
+        return [(ev.t0_ns, ev.t1_ns, ev.name) for ev in self.events]
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         """Aggregate totals per phase name: total seconds + call count."""

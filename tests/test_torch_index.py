@@ -336,6 +336,77 @@ def test_tracer_disabled_records_nothing():
     assert t.events == []
 
 
+def test_tracer_stamps_share_the_profilers_clock():
+    """Spans are stamped with ``time.time_ns()``: each lies between the
+    clock read before and after it, a nested span inside its parent, and
+    ``intervals`` gives them in the form of the benchmark's host spans."""
+    import time
+
+    t = Tracer(enabled=True)
+    before = time.time_ns()
+    with t.span("outer"):
+        with t.span("inner"):
+            sum(range(1000))
+    after = time.time_ns()
+    inner, outer = t.events
+    assert before <= outer.t0_ns <= inner.t0_ns <= inner.t1_ns <= outer.t1_ns <= after
+    assert outer.seconds == pytest.approx((outer.t1_ns - outer.t0_ns) * 1e-9)
+    assert t.intervals() == [(inner.t0_ns, inner.t1_ns, "inner"), (outer.t0_ns, outer.t1_ns, "outer")]
+
+
+def test_tracer_closing_counters():
+    t = Tracer(enabled=True)
+    with t.span("x", n=2) as closing:
+        closing["hops"] = 7
+        closing.update(wait_s=0.5)
+    assert t.events[0].counters == {"n": 2, "hops": 7, "wait_s": 0.5}
+    off = Tracer(enabled=False)
+    with off.span("x") as closing:
+        closing["hops"] = 7
+    assert off.events == []
+
+
+def _small_build_and_search():
+    rng = np.random.default_rng(1)
+    vecs = rng.normal(size=(64, 8)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=-1, keepdims=True)
+    index = Hnsw.generate(DenseSource(vectors=torch.from_numpy(vecs)), None,
+                          BuildParams(optimization=OptimizationParams(recall_proportion=0.5)),
+                          Metric.COSINE, seed=0)
+    index.improve_neighbors()
+    return index.search(torch.from_numpy(vecs[:16]), SearchParams(number_of_candidates=16))
+
+
+def test_disabled_tracer_records_nothing_in_a_build_and_search():
+    TRACER.events.clear()
+    assert not TRACER.enabled
+    _small_build_and_search()
+    assert TRACER.events == []
+
+
+def test_build_spans_carry_their_counters():
+    """``relink_layer`` closes with the rows it changed (the zero-duration
+    ``relinked`` event is gone); the build's searches are ``search_layer``
+    spans nested in the build's phases."""
+    TRACER.enabled = True
+    TRACER.events.clear()
+    try:
+        _small_build_and_search()
+        events = list(TRACER.events)
+    finally:
+        TRACER.enabled = False
+        TRACER.events.clear()
+    names = {e.name for e in events}
+    assert "relinked" not in names
+    assert {"generate_layer", "relink_layer", "search_layer"} <= names
+    relinks = [e for e in events if e.name == "relink_layer"]
+    assert all(isinstance(e.counters["rows_changed"], int) and e.counters["rows_changed"] >= 0
+               for e in relinks)
+    layers = [e for e in events if e.name == "search_layer"]
+    assert all(set(e.counters) == {"layer", "queries", "hops", "dispatch_s", "wait_s"} for e in layers)
+    assert any(e.depth > 0 for e in layers)
+
+
 def test_build_emits_phase_events_and_profile(tmp_path):
     rng = np.random.default_rng(0)
     vecs = rng.normal(size=(64, 8)).astype(np.float32)

@@ -208,3 +208,72 @@ def test_search_stack_counters(graphs):
     state = search_one_layer(th.layers[-1], th.source, th.metric, q, *empty_queue(8, (Q,)),
                              probe_depth=2, beam_width=4, max_hops=0)
     assert state.hops == 0 and int(state.evals) == 0 and bool(state.done.all())
+
+
+# -- the hop loop's spans -------------------------------------------------------
+
+
+def _layer_spans(run):
+    """``run()``'s result and the ``search_layer`` events it recorded."""
+    from parallel_hnsw_tpu_torch.utils.trace import TRACER
+
+    TRACER.enabled = True
+    TRACER.events.clear()
+    try:
+        out = run()
+        events = [e for e in TRACER.events if e.name == "search_layer"]
+    finally:
+        TRACER.enabled = False
+        TRACER.events.clear()
+    return out, events
+
+
+def test_hnsw_search_is_the_same_with_the_tracer_on(exact_graphs):
+    _, te, queries = exact_graphs
+    q = torch.from_numpy(queries)
+    off = te.search(q, SP_EXACT)
+    on, events = _layer_spans(lambda: te.search(q, SP_EXACT))
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    assert len(events) == len(te.layers)
+
+
+def test_layer_spans_count_the_hops_of_one_block(exact_graphs):
+    """One block: one span a layer, top first, whose hops add up to
+    ``search_instrumented``'s; the host's seconds fit inside each span."""
+    _, te, queries = exact_graphs
+    q = torch.from_numpy(queries)
+    _, events = _layer_spans(lambda: search(te.layers, te.source, te.metric, q, SP_EXACT))
+    stats = search_instrumented(te.layers, te.source, te.metric, q, SP_EXACT)[2]
+    assert [e.counters["layer"] for e in events] == list(range(len(te.layers)))
+    assert all(e.counters["queries"] == Q for e in events)
+    assert sum(e.counters["hops"] for e in events) == stats["hops"] > 0
+    for e in events:
+        c = e.counters
+        assert c["dispatch_s"] > 0 and c["wait_s"] > 0
+        assert c["dispatch_s"] + c["wait_s"] <= e.seconds
+
+
+def test_layer_spans_show_every_query_block(exact_graphs):
+    _, te, queries = exact_graphs
+    q = torch.from_numpy(queries)
+    _, events = _layer_spans(lambda: te.search(q, SP_EXACT, query_block=64))
+    n_layers = len(te.layers)
+    assert len(events) == 2 * n_layers
+    assert [e.counters["queries"] for e in events] == [64] * n_layers + [Q - 64] * n_layers
+    for layer in range(n_layers):
+        assert sum(e.counters["queries"] for e in events if e.counters["layer"] == layer) == Q
+
+
+@pytest.mark.parametrize("chunk_hops", [2, 16])
+def test_adaptive_layer_spans_count_the_lockstep_hops(exact_graphs, chunk_hops):
+    """The compacting path is one span a layer over all its chunks; its
+    queries retire early but the last one converges at the lockstep hop."""
+    _, te, queries = exact_graphs
+    q = torch.from_numpy(queries)
+    want, lock = _layer_spans(lambda: search_stack(te.layers, te.source, te.metric, q, SP_EXACT))
+    got, host = _layer_spans(lambda: search_host(te.layers, te.source, te.metric, q, SP_EXACT,
+                                                 chunk_hops=chunk_hops))
+    assert torch.equal(got[0], want[0])
+    assert [e.counters["layer"] for e in host] == list(range(len(te.layers)))
+    assert [e.counters["hops"] for e in host] == [e.counters["hops"] for e in lock]
+    assert all(e.counters["dispatch_s"] + e.counters["wait_s"] <= e.seconds for e in host)
