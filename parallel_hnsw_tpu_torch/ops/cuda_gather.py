@@ -33,7 +33,8 @@ from parallel_hnsw_tpu_torch.ops import _native
 from parallel_hnsw_tpu_torch.ops.cuda_distance import _MAX_INT, _METRIC_CODE
 from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance
 
-#: kernel launches, counted where a wrapper launches and nowhere else
+#: kernel launches, counted where a wrapper launches; a launch captured into
+#: a CUDA graph counts at each replay, not at capture (``hop_graph``)
 LAUNCHES = {"row_gather": 0, "gather_distance": 0}
 
 

@@ -13,12 +13,16 @@ gather-and-distance kernel (the rows are never written out; on the CPU its
 plain version, a gather and one batched contraction), and merges via masked
 sort.  The hop loop runs on the host and reads
 ``done.all()`` after every hop (the JAX package keeps it inside
-``lax.while_loop``); the instrumentation counters stay on the device.
+``lax.while_loop``); the instrumentation counters stay on the device.  On the
+card a long layer search replays its hop from a CUDA graph, one launch a hop
+(:mod:`parallel_hnsw_tpu_torch.hop_graph`), with the same results.
 
 With ``TRACER`` enabled, each layer search is one ``search_layer`` span with
 the counters ``layer`` (from the top), ``queries`` (rows of the block),
-``hops``, ``dispatch_s`` (host seconds in the hop bodies) and ``wait_s``
-(host seconds in the termination reads, which wait for the card).
+``hops``, ``dispatch_s`` (host seconds in the hop bodies, graph launches and
+captures), ``wait_s`` (host seconds in the termination reads, which wait for
+the card), ``graph_hops`` (hops replayed from a graph) and ``captures``
+(graphs captured).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from parallel_hnsw_tpu_torch import hop_graph
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE
 from parallel_hnsw_tpu_torch.graph import (
     Layer,
@@ -204,9 +209,8 @@ def search_one_layer(
     """
     q_count, cap = init_ids.shape
     dev = queries.device
-    cond, body = _layer_step_fns(
-        layer, source, metric, queries, cap, beam_width, _auto_max_hops(cap, max_hops), slab=slab
-    )
+    max_hops = _auto_max_hops(cap, max_hops)
+    cond, body = _layer_step_fns(layer, source, metric, queries, cap, beam_width, max_hops, slab=slab)
     state = _fresh_state(
         init_ids,
         init_dists,
@@ -214,15 +218,108 @@ def search_one_layer(
         torch.full((q_count,), probe_depth, dtype=torch.int32, device=dev),
         ~torch.any(init_ids != EMPTY_ID, dim=-1),
     )
+    key = hop_graph.graph_key(
+        layer, source, slab, queries, cap, min(beam_width, cap), metric, probe_depth
+    )
+
+    def new_graph() -> hop_graph.HopGraph:
+        static_queries = torch.empty_like(queries, memory_format=torch.contiguous_format)
+        return hop_graph.HopGraph(
+            lambda: _layer_step_fns(
+                layer, source, metric, static_queries, cap, beam_width, max_hops, slab=slab
+            )[1],
+            state,
+            static_queries,
+        )
+
+    def run_hops(clock: Optional[List[float]]) -> Tuple[LayerSearchState, int, int]:
+        if key is None:
+            return _hops(cond, body, state, clock), 0, 0
+        lock = hop_graph.HOP_GRAPHS.lock(dev)
+        if not lock.acquire(blocking=False):  # another search holds the device's graphs
+            return _hops(cond, body, state, clock), 0, 0
+        try:
+            watch = hop_graph.key_tensors(layer, source, slab)
+            return _layer_hops(cond, body, state, max_hops, key, new_graph, watch, queries, clock)
+        finally:
+            lock.release()
+
     if not TRACER.enabled:
-        while cond(state):
-            state = body(state)
-        return state
+        return run_hops(None)[0]
     clock = [0.0, 0.0]
     with TRACER.span("search_layer", layer=layer_index, queries=q_count) as closing:
-        state = _timed_hops(cond, body, state, clock)
-        closing.update(hops=state.hops, dispatch_s=clock[0], wait_s=clock[1])
+        state, graph_hops, captures = run_hops(clock)
+        closing.update(hops=state.hops, dispatch_s=clock[0], wait_s=clock[1],
+                       graph_hops=graph_hops, captures=captures)
     return state
+
+
+def _timed(fn: Callable, clock: Optional[List[float]], slot: int):
+    """``fn()``, its host seconds added to ``clock[slot]`` when a clock is
+    given."""
+    if clock is None:
+        return fn()
+    t = time.perf_counter()
+    out = fn()
+    clock[slot] += time.perf_counter() - t
+    return out
+
+
+def _hops(cond: Callable, body: Callable, state, clock: Optional[List[float]]):
+    """``while cond: body``, timed into ``clock`` when one is given."""
+    if clock is not None:
+        return _timed_hops(cond, body, state, clock)
+    while cond(state):
+        state = body(state)
+    return state
+
+
+def _layer_hops(
+    cond: Callable[[LayerSearchState], bool],
+    body: Callable[[LayerSearchState], LayerSearchState],
+    state: LayerSearchState,
+    max_hops: int,
+    key,
+    new_graph: Callable[[], "hop_graph.HopGraph"],
+    watch: Sequence[torch.Tensor],
+    queries: torch.Tensor,
+    clock: Optional[List[float]],
+) -> Tuple[LayerSearchState, int, int]:
+    """The hop loop of a layer search whose hop may be graphed (``key``, with
+    the device's graphs held); returns the final state, the hops replayed
+    from a graph and the graphs captured (0 or 1).
+
+    A ``key`` with a graph replays it from the first hop.  Otherwise the
+    search runs ``CAPTURE_AFTER_HOPS`` eager hops and, if it has not
+    converged, captures its hop (kept until a tensor of ``watch`` is freed)
+    and replays the rest.  Either way the host reads one ``done`` flag a hop
+    and counts the hops for ``max_hops``; the graph's work runs on the
+    device's graph stream, and capture and the state's copies in and out
+    count as dispatch."""
+    graphs = hop_graph.HOP_GRAPHS
+    graph = graphs.get(key)
+    captures = 0
+    if graph is None:
+        limit = hop_graph.CAPTURE_AFTER_HOPS
+        state = _hops(lambda s: s.hops < limit and cond(s), body, state, clock)
+        if state.hops < limit or not _timed(lambda: cond(state), clock, 1):
+            return state, 0, 0
+        graph = _timed(lambda: graphs.add(key, new_graph(), watch), clock, 0)
+        captures = 1
+
+    def replay(hops: int) -> int:
+        graph.replay()
+        return hops + 1
+
+    with graphs.on_stream(queries.device) as caller:
+        _timed(lambda: graph.load(state, queries), clock, 0)
+        hops = _hops(lambda h: h < max_hops and not bool(graph.all_done), replay, state.hops, clock)
+        out = _timed(lambda: graph.state(hops), clock, 0)
+    if caller is not None:  # made on the graph stream, used on the caller's
+        for t in out:
+            if isinstance(t, torch.Tensor):
+                t.record_stream(caller)
+    return out, hops - state.hops, captures
 
 
 def _host_layer_search(
@@ -255,7 +352,7 @@ def _host_layer_search(
         out_ids, out_dists, hops = _compacting_search(
             layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, clock
         )
-        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1])
+        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1], graph_hops=0, captures=0)
     return out_ids, out_dists
 
 
@@ -294,12 +391,7 @@ def _compacting_search(
         cond, body = _layer_step_fns(
             layer, source, metric, act_queries, cap, sp.beam_width, chunk_hops
         )
-        state = state._replace(hops=0)
-        if clock is None:
-            while cond(state):
-                state = body(state)
-        else:
-            state = _timed_hops(cond, body, state, clock)
+        state = _hops(cond, body, state._replace(hops=0), clock)
         hops_used += state.hops
         done = torch.ones_like(state.done) if hops_used >= max_hops else state.done
         fin = done.nonzero()[:, 0]

@@ -403,7 +403,10 @@ def test_build_spans_carry_their_counters():
     assert all(isinstance(e.counters["rows_changed"], int) and e.counters["rows_changed"] >= 0
                for e in relinks)
     layers = [e for e in events if e.name == "search_layer"]
-    assert all(set(e.counters) == {"layer", "queries", "hops", "dispatch_s", "wait_s"} for e in layers)
+    assert all(set(e.counters) == {"layer", "queries", "hops", "dispatch_s", "wait_s", "graph_hops",
+                                   "captures"} for e in layers)
+    # on the CPU every hop is eager
+    assert all(e.counters["graph_hops"] == e.counters["captures"] == 0 for e in layers)
     assert any(e.depth > 0 for e in layers)
 
 

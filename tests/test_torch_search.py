@@ -277,3 +277,123 @@ def test_adaptive_layer_spans_count_the_lockstep_hops(exact_graphs, chunk_hops):
     assert [e.counters["layer"] for e in host] == list(range(len(te.layers)))
     assert [e.counters["hops"] for e in host] == [e.counters["hops"] for e in lock]
     assert all(e.counters["dispatch_s"] + e.counters["wait_s"] <= e.seconds for e in host)
+
+
+# -- the replayed hop (hop_graph) on the CPU --------------------------------------
+
+
+class _Replayer:
+    """Stands in for a CUDA graph on the CPU: a replay runs the captured hop."""
+
+    def __init__(self, step):
+        self.replay = step
+
+    def pool(self):
+        return None
+
+
+@pytest.fixture
+def replayed(monkeypatch):
+    """The graph path on the CPU: the capture rule without its device check,
+    a capture that keeps the hop (``HopGraph.step``, the function a CUDA
+    graph captures) for each replay, and an empty cache for the test."""
+    from parallel_hnsw_tpu_torch import hop_graph
+
+    monkeypatch.setattr(hop_graph, "should_capture", lambda device_type, kind, rows, hops_run: (
+        kind in hop_graph.GRAPH_KINDS and 0 < rows <= hop_graph.MAX_GRAPH_ROWS
+        and hops_run >= hop_graph.CAPTURE_AFTER_HOPS))
+    monkeypatch.setattr(hop_graph.HopGraph, "capture",
+                        lambda self, pool: setattr(self, "graph", _Replayer(self.step)))
+    cache = hop_graph.HopGraphCache()
+    monkeypatch.setattr(hop_graph, "HOP_GRAPHS", cache)
+    yield cache
+    cache.clear()
+
+
+@pytest.mark.parametrize("excluded", [False, True], ids=["plain", "exclude"])
+def test_replayed_hops_match_jax(exact_graphs, replayed, excluded):
+    """The device hop counter's improvement hops, the evaluations, hops, ids
+    and distances of the in-place hop against the JAX package, on a first
+    call that captures and a second that replays from the first hop."""
+    je, te, queries = exact_graphs
+    if excluded:
+        queries = te.source.vectors[:Q].numpy()
+    exclude = np.arange(Q, dtype=np.int32) if excluded else None
+    j_ids, j_d, j_stats = jax_search_instrumented(
+        je.layers, je.source, je.metric, jnp.asarray(queries), JaxSearchParams(**vars(SP_EXACT)),
+        exclude=None if exclude is None else jnp.asarray(exclude),
+    )
+    for call in range(2):
+        (t_ids, t_d, t_stats), events = _layer_spans(lambda: search_instrumented(
+            te.layers, te.source, te.metric, torch.from_numpy(queries), SP_EXACT,
+            exclude=None if exclude is None else torch.from_numpy(exclude)))
+        np.testing.assert_array_equal(t_ids.numpy(), np.asarray(j_ids))
+        np.testing.assert_array_equal(t_d.numpy(), np.asarray(j_d))
+        assert t_stats["hops"] == j_stats["hops"]
+        assert t_stats["distance_evaluations"] == j_stats["distance_evaluations"]
+        assert t_stats["last_improvement_hop"].dtype == torch.int32
+        np.testing.assert_array_equal(
+            t_stats["last_improvement_hop"].numpy(), np.asarray(j_stats["last_improvement_hop"]))
+        captures = sum(e.counters["captures"] for e in events)
+        assert captures == (1 if call == 0 else 0)
+        bottom = events[-1].counters
+        assert bottom["graph_hops"] > 0
+        if call:
+            assert bottom["graph_hops"] == bottom["hops"]
+
+
+def test_replayed_search_equals_eager(graphs, replayed, monkeypatch):
+    """Unit vectors in two query blocks: the replayed and the eager loop give
+    the same answer; one graph a block size, found again by the next call;
+    a replaced neighbor table is a new key, an in-place edit is seen."""
+    from parallel_hnsw_tpu_torch import hop_graph
+
+    _, th, queries = graphs
+    q = torch.from_numpy(queries)
+    sp = SearchParams()
+    layers = list(th.layers)
+
+    def run():
+        return _layer_spans(lambda: search(layers, th.source, th.metric, q, sp, query_block=64))
+
+    def eager():
+        with monkeypatch.context() as m:
+            m.setattr(hop_graph, "should_capture", lambda device_type, kind, rows, hops_run: False)
+            return run()
+
+    want, events = eager()
+    assert all(e.counters["graph_hops"] == e.counters["captures"] == 0 for e in events)
+    for call in range(2):
+        got, events = run()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert sum(e.counters["captures"] for e in events) == (2 if call == 0 else 0)
+    assert len(replayed) == 2
+    layers[-1] = layers[-1]._replace(neighbors=layers[-1].neighbors.clone())
+    got, events = run()
+    assert torch.equal(got[0], want[0]) and sum(e.counters["captures"] for e in events) == 2
+    layers[-1].neighbors[:, 8:] = EMPTY_ID
+    want, _ = eager()
+    got, events = run()
+    assert sum(e.counters["captures"] for e in events) == 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_a_search_finding_the_graphs_in_use_runs_eagerly(graphs, replayed):
+    """While another search holds the device's graphs, a search runs every
+    hop eagerly, with the same answer."""
+    _, th, queries = graphs
+    q = torch.from_numpy(queries)
+
+    def run():
+        return _layer_spans(lambda: search(th.layers, th.source, th.metric, q, SearchParams(),
+                                           query_block=64))
+
+    want, events = run()
+    assert sum(e.counters["captures"] for e in events) == 2
+    with replayed.lock(q.device):
+        got, events = run()
+    assert all(e.counters["graph_hops"] == e.counters["captures"] == 0 for e in events)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got, events = run()
+    assert sum(e.counters["graph_hops"] for e in events) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
