@@ -526,16 +526,27 @@ class QuantizedHnsw:
         code_dtype: Optional[torch.dtype] = None,
         per_subspace: bool = False,
         kmeans_sample: Optional[int] = None,
+        kmeans_iters: int = 5,
         progress: Optional[ProgressMonitor] = None,
         verbose: bool = False,
         projection=None,
         shuffle=None,
         device=None,
+        build_graph: bool = True,
     ) -> "QuantizedHnsw":
         """Centroids (random or k-means; shared or per subspace), the centroid
         graph and its ``improve_index`` (shared codebook only), the corpus
         quantized in ``chunk_size`` chunks into a :class:`PqSource` (``uint16``
         codes when K <= 65536), then the code graph over it.
+
+        ``build_graph=False`` gives a **scan-only** index: everything above
+        but the code graph, whose build at ten million rows takes longer than
+        the codes themselves.  The index holds an :class:`Hnsw` with no
+        layers over the codes; :meth:`search_exact` is its query engine, and
+        the methods that walk or repair the graph raise (a parameter of the
+        port alone: the JAX package always builds the graph).
+        ``kmeans_iters`` is the Lloyd iterations of ``use_kmeans`` training
+        (the port's too: the JAX package always runs 5).
 
         A DenseSource's index lands on its device.  A :class:`MemmapSource`
         (out of core) stays on the host: centroids are sampled from host rows,
@@ -564,7 +575,8 @@ class QuantizedHnsw:
             with TRACER.span("pq_subspace_centroids", sync=sync, n=number_of_centroids):
                 centroids = per_subspace_centroids(
                     vectors, number_of_centroids, dsub, seed=seed, use_kmeans=use_kmeans,
-                    sample=kmeans_sample, device=device, projections=projection, shuffles=shuffle,
+                    iters=kmeans_iters, sample=kmeans_sample, device=device,
+                    projections=projection, shuffles=shuffle,
                 )
             monitor.alive()
             quantizer: Quantizer = SubspaceQuantizer(centroids, metric, pqp)
@@ -572,8 +584,8 @@ class QuantizedHnsw:
             with TRACER.span("pq_centroids", sync=sync, n=number_of_centroids):
                 if use_kmeans:
                     centroids = kmeans_centroids(
-                        vectors, number_of_centroids, dsub, seed=seed, sample=kmeans_sample,
-                        device=device,
+                        vectors, number_of_centroids, dsub, iters=kmeans_iters, seed=seed,
+                        sample=kmeans_sample, device=device,
                     )
                 else:
                     centroids = random_centroids(
@@ -606,6 +618,8 @@ class QuantizedHnsw:
             code_dtype = code_dtype_for(centroids.shape[-2])
         codes = narrow_codes(codes) if code_dtype == torch.uint16 else codes.to(code_dtype)
         pq_source = PqSource(codes=codes, codebook=centroids)
+        if not build_graph:
+            return cls(quantizer, Hnsw([], pq_source, metric, pqp.hnsw, verbose=verbose), full_source)
 
         with TRACER.span("pq_code_graph", sync=sync, n=n):
             hnsw = Hnsw.generate(
@@ -615,7 +629,13 @@ class QuantizedHnsw:
 
     @property
     def vector_count(self) -> int:
-        return self.hnsw.vector_count
+        """Rows in the index: the code graph's bottom layer, or every code of
+        a scan-only index."""
+        return self.hnsw.vector_count if self.hnsw.layers else self.hnsw.source.count
+
+    def _check_graph(self, what: str) -> None:
+        if not self.hnsw.layers:
+            raise ValueError(f"scan-only index (build_graph=False) has no code graph {what}")
 
     def centroid_hnsw(self) -> Optional[Hnsw]:
         """The centroid graph (shared-codebook quantizer only; a
@@ -632,6 +652,7 @@ class QuantizedHnsw:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Quantize the query, search the code graph, exact-rerank
         (reference: src/pq.rs:346-364)."""
+        self._check_graph("to search; query it with search_exact()")
         sp = sp or self.hnsw.build_parameters.optimization.search
         if query_block <= 0:
             # the JAX package's bound on the code-graph hop's reconstructed
@@ -663,8 +684,13 @@ class QuantizedHnsw:
 
     def _rerank(self, queries: torch.Tensor, ids: torch.Tensor, block_budget: int = 1 << 30):
         """Exact rerank of every returned candidate with the full-precision
-        vectors, resorted by (distance, id) (reference: src/pq.rs:354-363)."""
-        return exact_rerank(self.full_source, self.hnsw.metric, queries, ids, block_budget)
+        vectors, resorted by (distance, id) (reference: src/pq.rs:354-363).
+
+        Traced as ``pq_rerank`` (``rows``: candidate rows gathered; ``host``:
+        1 when the rows come from a host source), waiting for the card."""
+        host = int(is_host_source(self.full_source))
+        with TRACER.span("pq_rerank", sync=queries, rows=ids.numel(), host=host):
+            return exact_rerank(self.full_source, self.hnsw.metric, queries, ids, block_budget)
 
     def search_exact(
         self,
@@ -683,7 +709,12 @@ class QuantizedHnsw:
         scan keeps ``oversample * k`` survivors per query and the exact
         full-precision rerank cuts back to ``k``; from 200k codes the scan is
         the binned kernel on blocks of >= 2^19 codes, below it the pairwise
-        kernel (fast mode, or exact without ``rerank``)."""
+        kernel (fast mode, or exact without ``rerank``).
+
+        Each query block is traced as ``pq_scan``, waiting for the card:
+        ``queries`` (rows of the block), ``code_blocks`` and ``decoded_rows``
+        (code blocks decoded and scanned, and their rows), ``survivors``
+        (survivor slots the block hands on: rows times ``oversample * k``)."""
         pq_src = self.hnsw.source
         if not isinstance(pq_src, PqSource):
             raise TypeError(f"the code graph's source is a {type(pq_src).__name__}, not a PqSource")
@@ -697,22 +728,26 @@ class QuantizedHnsw:
         out_i, out_d = [], []
         for qs in range(0, queries.shape[0], query_block):
             q = queries[qs : qs + query_block].contiguous()
-            q_op = scan_operand(q) if binned else prepare_operand(q, metric, exact=exact)
-            best_i = best_d = None
-            for cs in range(0, n, code_block):
-                feats = reconstruct(pq_src.codebook, pq_src.codes[cs : cs + code_block])
-                kk = min(k_scan, feats.shape[0])
-                if binned:
-                    bd, bc = binned_scan(q_op, scan_operand(feats), metric, tile_c=4096, exact=False)
-                else:
-                    feats_op = prepare_operand(feats, metric, exact=exact)
-                    bd, bc = best_pairwise_distance(q_op, feats_op, metric, exact=exact), None
-                idx, dd = _cut_survivors(bd, bc, cs, kk)
-                if best_i is None:
-                    best_i, best_d = idx, dd
-                else:
-                    s_i, s_d = sort_queue(torch.cat([best_i, idx], -1), torch.cat([best_d, dd], -1))
-                    best_i, best_d = s_i[:, :k_scan], s_d[:, :k_scan]
+            with TRACER.span("pq_scan", sync=q, queries=q.shape[0]) as closing:
+                q_op = scan_operand(q) if binned else prepare_operand(q, metric, exact=exact)
+                best_i = best_d = None
+                blocks = decoded = 0
+                for cs in range(0, n, code_block):
+                    feats = reconstruct(pq_src.codebook, pq_src.codes[cs : cs + code_block])
+                    blocks, decoded = blocks + 1, decoded + feats.shape[0]
+                    kk = min(k_scan, feats.shape[0])
+                    if binned:
+                        bd, bc = binned_scan(q_op, scan_operand(feats), metric, tile_c=4096, exact=False)
+                    else:
+                        feats_op = prepare_operand(feats, metric, exact=exact)
+                        bd, bc = best_pairwise_distance(q_op, feats_op, metric, exact=exact), None
+                    idx, dd = _cut_survivors(bd, bc, cs, kk)
+                    if best_i is None:
+                        best_i, best_d = idx, dd
+                    else:
+                        s_i, s_d = sort_queue(torch.cat([best_i, idx], -1), torch.cat([best_d, dd], -1))
+                        best_i, best_d = s_i[:, :k_scan], s_d[:, :k_scan]
+                closing.update(code_blocks=blocks, decoded_rows=decoded, survivors=best_i.numel())
             out_i.append(best_i)
             out_d.append(best_d)
         ids, dists = torch.cat(out_i), torch.cat(out_d)
@@ -722,18 +757,23 @@ class QuantizedHnsw:
 
     # delegates (reference: src/pq.rs:366-410)
     def improve_index(self, bp: Optional[BuildParams] = None, last_recall=None) -> float:
+        self._check_graph("to improve; build it with build_graph=True")
         return self.hnsw.improve_index(bp, last_recall)
 
     def improve_neighbors(self, op: Optional[OptimizationParams] = None, last_recall=None) -> float:
+        self._check_graph("to improve; build it with build_graph=True")
         return self.hnsw.improve_neighbors(op, last_recall)
 
     def promote_at_layer(self, layer_from_top: int, bp: Optional[BuildParams] = None) -> bool:
+        self._check_graph("to promote in; build it with build_graph=True")
         return self.hnsw.promote_at_layer(layer_from_top, bp)
 
     def stochastic_recall(self, op: Optional[OptimizationParams] = None) -> float:
+        self._check_graph("to sample recall from; build it with build_graph=True")
         return self.hnsw.stochastic_recall(op)
 
     def threshold_nn(self, threshold: float, probe_depth: int = 2, initial_search_depth=None):
+        self._check_graph("to walk; build it with build_graph=True")
         return self.hnsw.threshold_nn(threshold, probe_depth, initial_search_depth)
 
     def zero_neighborhood_size(self) -> int:
