@@ -46,6 +46,13 @@ Phases, each printed as it ends:
    row-gather kernel + ``batched_distance`` (the hop before it), of the
    plain version and of ``torch.index_select`` + ``torch.baddbmm``, beside
    its bounds with the table read once and with every gathered row read;
+   then the hop's queue-merge kernel against its plain version
+   (``merge_queue_with_flags`` + ``merged_frontier``) bit for bit at 8,192
+   and 100 rows of 300 slots + 192 candidates, and the median time of the
+   kernel, of the plain version and of the library chain it replaced
+   (``merge_queue_with_flags``'s four sorts and gathers + the frontier's
+   ``torch.topk``), each replayed from a CUDA graph, beside its bound by
+   bytes;
 5. the corpus of ``--count`` random 100-d unit vectors and 10,000 held-out
    ones (numpy seed 42) goes through the reference's file format: written
    as an ``.fvecs`` file to a temporary directory and read back with
@@ -58,8 +65,9 @@ Phases, each printed as it ends:
 6. ``Hnsw.search`` of 10,000 held-out vectors at the default
    ``SearchParams``: recall@10 against ``Hnsw.search_exact`` and QPS; then
    recall@10 of as many corpus rows as queries (``bench.py``'s measure), and
-   the gather-and-distance and row-gather launches of one search pass (one
-   of each per hop, plus the entry's row gather per query block);
+   the gather-and-distance, queue-merge and row-gather launches of one
+   search pass (one of each per hop, plus the entry's row gather per query
+   block);
 7. the other traversals on that index: ``search_instrumented`` and
    ``search.search(adaptive=True)`` (the plain search's ids and distances,
    bit for bit, though its batches shrink), f32 hop slabs (ids and distances
@@ -198,8 +206,8 @@ from parallel_hnsw_tpu_torch.graph import (
     source_get,
     widen_codes,
 )
-from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_gather, cuda_scan
-from parallel_hnsw_tpu_torch.ops.queues import sort_queue
+from parallel_hnsw_tpu_torch.ops import _native, cuda_distance, cuda_gather, cuda_queues, cuda_scan
+from parallel_hnsw_tpu_torch.ops.queues import merge_queue_with_flags, merged_frontier, sort_queue
 from parallel_hnsw_tpu_torch.optimize import link_layer_to_better_neighbors
 from parallel_hnsw_tpu_torch.parallel import Mesh, ShardedHnsw, ShardedQuantizedHnsw
 from parallel_hnsw_tpu_torch.pq import adc_lut, adc_scan, quantize_binned
@@ -275,6 +283,8 @@ GATHER_TIMED = ((100_000, 128), (200_000, DIM))
 # summation orders differ by a few ulps of 4.
 HOP_QUERIES, HOP_CANDIDATES = 8192, 4 * 48
 GATHER_DISTANCE_ATOL = 2e-5
+# The hop's queue update at ef 300: the batch cell's block and an online call
+MERGE_CAP, MERGE_ROWS = 300, (HOP_QUERIES, 100)
 # Held-out search QPS of this script's phase 6 on an NVIDIA H100 80GB HBM3 at
 # 700 W while the hop still gathered with torch indexing; printed beside
 # today's so a slow gather kernel is seen.
@@ -317,6 +327,23 @@ def _median_ms(fn, reps: int = 10) -> float:
     torch.cuda.synchronize()
     calls = 4 if sample(1) < 2.0 else 1
     return float(np.median([sample(calls) for _ in range(reps)]))
+
+
+def _graphed_ms(fn, launches: int = 20) -> float:
+    """Median device time of one call of ``fn``, replayed from a CUDA graph
+    of ``launches`` calls: a wrapper's host time (tens of microseconds),
+    which a call of a few microseconds would otherwise be timed by, is not
+    counted, as on the hop loop's replayed path."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _median_ms(graph.replay) / launches
 
 
 def _recall_at_10(ids: torch.Tensor, gt_ids: torch.Tensor) -> float:
@@ -882,6 +909,81 @@ def check_gather_distance_kernel(device) -> dict:
             "routing_bound_ms": routing["bound_ms"]}
 
 
+def _hop_queues(rows: int, cap: int, c: int, gen: torch.Generator, device):
+    """A hop's queue-update inputs at ef ``cap``: queues merged from random
+    nodes of a 200,000-row index at distances in [0, 1) (flags 0 or 1), and
+    candidates of which a third repeat queued nodes at their distance or one
+    ulp below it and a tenth are empty slots; no row done."""
+    ids = torch.randint(0, 200_000, (rows, 2 * cap), generator=gen, dtype=torch.int32)
+    d = torch.rand(rows, 2 * cap, generator=gen)
+    q_ids, q_d, _, _ = merge_queue_with_flags(
+        torch.full((rows, cap), EMPTY_ID, dtype=torch.int32), torch.full((rows, cap), float("inf")),
+        torch.zeros(rows, cap, dtype=torch.int32), ids, d)
+    flags = torch.randint(0, 2, (rows, cap), generator=gen, dtype=torch.int32)
+    c_ids = torch.randint(0, 200_000, (rows, c), generator=gen, dtype=torch.int32)
+    c_d = torch.rand(rows, c, generator=gen)
+    pick = torch.randint(0, cap, (rows, c), generator=gen)
+    kind = torch.randint(0, 10, (rows, c), generator=gen)
+    again = kind < 3
+    c_ids = torch.where(again, torch.gather(q_ids, 1, pick), c_ids)
+    c_d = torch.where(again, torch.gather(q_d, 1, pick), c_d)
+    c_d = torch.where(kind == 1, torch.nextafter(c_d, torch.tensor(-1.0)), c_d)
+    c_ids = torch.where(kind == 9, EMPTY_ID, c_ids)
+    c_d = torch.where(kind == 9, float("inf"), c_d)
+    frontier, ok = merged_frontier(q_ids, flags, 4)
+    return tuple(t.to(device) for t in (q_ids, q_d, flags, c_ids, c_d)) + (None,) + (
+        frontier.to(device), ok.to(device))
+
+
+def check_queue_merge_kernel(device) -> dict:
+    """The hop's queue-merge kernel against ``plain_queue_update`` bit for
+    bit, at the batch cell's block and an online call's 100 rows (ef 300,
+    192 candidates), then its time beside the plain version's, the library
+    chain it replaced (``merge_queue_with_flags`` and the frontier's
+    ``torch.topk``) and its bound by bytes, each replayed from a CUDA graph
+    as the hop is.  The kernel updates in place, so its timed calls merge
+    the same candidates again into the queue they made: every candidate is
+    then a duplicate, and the work is the same."""
+    gen = torch.Generator().manual_seed(16)
+    out = {}
+    for rows in MERGE_ROWS:
+        args = _hop_queues(rows, MERGE_CAP, HOP_CANDIDATES, gen, device)
+        want = cuda_queues.plain_queue_update(*args)
+        work = tuple(t.clone() if t is not None else None for t in args)
+        got = cuda_queues.cuda_queue_update(*work)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            g, w = (g.view(torch.int32), w.view(torch.int32)) if g.is_floating_point() else (g, w)
+            assert torch.equal(g, w), f"queue_merge disagrees with its plain version at {rows} rows"
+        ids, dists, flags, c_ids, c_d = args[:5]
+        cap = MERGE_CAP
+
+        def library():
+            m_ids, _, m_flags, _ = merge_queue_with_flags(ids, dists, flags, c_ids, c_d)
+            rank = torch.where((m_flags == 0) & (m_ids != EMPTY_ID),
+                               torch.arange(cap, device=device), cap)
+            return torch.topk(-rank, 4, dim=-1)
+
+        kernel = lambda: cuda_queues.cuda_queue_update(*work)
+        plain = lambda: cuda_queues.plain_queue_update(*args)
+        k1, l1, l2, k2 = (_graphed_ms(f) for f in (kernel, library, library, kernel))
+        p_ms = _graphed_ms(plain)
+        nbytes = rows * (cap * 12 * 2 + HOP_CANDIDATES * 8 + 4 * 9 + 1)
+        bound = _bound(0.0, PEAK_FP32_FLOPS, nbytes)
+        ms, lib_ms = min(k1, k2), min(l1, l2)
+        threads = _native.load().queue_merge_threads(cap, HOP_CANDIDATES)
+        print(f"queue_merge at [{rows} x ({cap} + {HOP_CANDIDATES})]: bit for bit with its plain "
+              f"version; kernel {k1:.4f} / {k2:.4f} ms ({threads} threads a row); plain "
+              f"{p_ms:.4f} ms; merge_queue_with_flags + torch.topk {l1:.4f} / {l2:.4f} ms "
+              f"(the kernel {lib_ms / ms:.1f}x faster); bound {bound['bound_ms']:.4f} ms by "
+              f"bytes, kernel at {bound['bound_ms'] / ms:.1%} of it")
+        out[rows] = {"shape": f"{rows} x ({cap} + {HOP_CANDIDATES})", "ms": ms, "plain_ms": p_ms,
+                     "library_ms": lib_ms, "library": "merge_queue_with_flags + torch.topk",
+                     **bound}
+    batch, online = (out[r] for r in MERGE_ROWS)
+    return {**batch, "online": online}
+
+
 def _timed_s(fn, reps: int = 3):
     """``(result, median seconds)`` of ``fn`` over ``reps`` runs after a warm-up."""
     out = fn()
@@ -896,7 +998,8 @@ def _timed_s(fn, reps: int = 3):
 
 
 def _zero_launches() -> None:
-    for counts in (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES, cuda_gather.LAUNCHES):
+    for counts in (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES, cuda_gather.LAUNCHES,
+                   cuda_queues.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -2384,7 +2487,8 @@ def main() -> None:
     # 4. row-gather and gather-and-distance kernels against their plain versions
     gather = check_gather_kernel(device)
     gather_distance = check_gather_distance_kernel(device)
-    t = _phase("4 gather kernel check", t)
+    queue_merge = check_queue_merge_kernel(device)
+    t = _phase("4 gather and queue-merge kernel checks", t)
 
     # 5. the corpus through the reference's file format, then the build
     drawn = random_unit_corpus(args.count + QUERIES, DIM, seed=42, device="cpu").vectors.numpy()
@@ -2444,19 +2548,22 @@ def main() -> None:
     _zero_launches()
     one_ids, _ = hnsw.search(queries)
     torch.cuda.synchronize()
-    hop_launches = dict(cuda_gather.LAUNCHES)
+    hop_launches = dict(cuda_gather.LAUNCHES, **cuda_queues.LAUNCHES)
     block = auto_query_block(hnsw.compute_source, hnsw.build_parameters.optimization.search,
                              max(layer.neighborhood_size for layer in hnsw.layers))
     blocks = -(-QUERIES // block)
     print(f"launches in one search pass of {QUERIES} queries ({blocks} query blocks): "
           f"gather_distance {hop_launches['gather_distance']} (the hop's candidate rows and their "
           f"distances), row_gather {hop_launches['row_gather']} (the hop's neighbor rows, and the "
-          f"entry vector once per block)")
+          f"entry vector once per block), queue_merge {hop_launches['queue_merge']} (the hop's "
+          f"queue update)")
     assert torch.equal(one_ids, ids), "a second search pass answered differently"
     # every hop launches each kernel once; the row gather no longer carries feature rows
     assert hop_launches["gather_distance"] > 0, "the search did not run the gather-and-distance kernel"
     assert hop_launches["row_gather"] == hop_launches["gather_distance"] + blocks, (
         "the row gather ran more than the hop's neighbor rows and the entry vector")
+    assert hop_launches["queue_merge"] == hop_launches["gather_distance"], (
+        "a hop did not update its queue by the queue-merge kernel")
     t = _phase("6 search", t)
 
     # 7. the other traversals
@@ -2591,6 +2698,14 @@ def main() -> None:
             "pq": pq_kernels["gather_distance"],
             "launches_sharded_path": sharded_path["gather_distance"],
             "sharded": sharded_kernels["gather_distance"],
+        },
+        {
+            "name": "queue_merge",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/queue_merge.cu",
+            "replaces": None,
+            "launches": hop_launches["queue_merge"],
+            **queue_merge,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,19 @@
 """One hop of the lockstep layer search, replayed from a CUDA graph.
 
 Python dispatches each hop of :func:`~parallel_hnsw_tpu_torch.search.search_one_layer`
-as ~110 kernels: the frontier top-k, gathers and scatters, the hand-written
-``row_gather`` and ``gather_distance`` kernels and the merge's sorts.  At a
-small batch most of them run for a few microseconds and the host's dispatch,
-15-20 us a launch, is the hop's time.  A CUDA graph captures the hop once and
-replays it with one launch.
+as a few tens of kernels: gathers, scatters and elementwise masks around the
+hand-written ``row_gather``, ``gather_distance`` and ``queue_merge`` kernels.
+At a small batch most of them run for a few microseconds and the host's
+dispatch, 15-20 us a launch, is the hop's time.  A CUDA graph captures the
+hop once and replays it with one launch.
 
 :class:`HopGraph` holds the state the hop reads and writes in static
 buffers, a ``LayerSearchState`` whose ``hops`` is a device counter: the
 queues, expanded flags, probes, ``done``, the evaluation count, the
-improvement hops, and beside them the layer's queries.  Its hop
+improvement hops, the frontier, and beside them the layer's queries.  Its hop
 (:meth:`HopGraph.step`) is the eager hop's body, the same kernels in the same
-order, followed by copies of its results over the buffers it read, so every
+order, followed by copies of its results over the buffers it read (none for
+the queues, flags and frontier, which the hop updates in place), so every
 replay advances the state in place and the state after ``n`` replays is the
 eager loop's after ``n`` hops, bit for bit.  The same hop also reduces
 ``done`` into one flag, so the host's termination read is one small copy and
@@ -48,7 +49,7 @@ from typing import Callable, Hashable, Iterator, NamedTuple, Optional, Sequence,
 import torch
 
 from parallel_hnsw_tpu_torch.graph import DenseSource, Layer, MemmapSource, PqSource
-from parallel_hnsw_tpu_torch.ops import cuda_distance, cuda_gather, cuda_scan
+from parallel_hnsw_tpu_torch.ops import cuda_distance, cuda_gather, cuda_queues, cuda_scan
 from parallel_hnsw_tpu_torch.ops.distance import Metric
 
 #: the largest block captured: ``search.auto_query_block``'s cap, so every
@@ -64,7 +65,8 @@ CACHE_ENTRIES = 16
 GRAPH_KINDS = ("dense", "slab")
 #: the kernel launch counters: a capture adds nothing to them (it runs
 #: nothing on the card) and each replay adds what its capture launched
-_LAUNCH_COUNTERS = (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES, cuda_gather.LAUNCHES)
+_LAUNCH_COUNTERS = (cuda_distance.LAUNCHES, cuda_scan.LAUNCHES, cuda_queues.LAUNCHES,
+                    cuda_gather.LAUNCHES)
 
 
 def source_kind(source, slab: Optional[torch.Tensor]) -> str:
@@ -160,11 +162,13 @@ class HopGraph:
 
     def step(self) -> None:
         """One hop: the eager hop's kernels on the buffers, its results copied
-        over them, and ``done`` reduced into :attr:`all_done`."""
+        over them (where it did not update them in place), and ``done``
+        reduced into :attr:`all_done`."""
         if self._body is None:
             self._body = self._make_body()
         for buf, value in zip(self.buffers, self._body(self.buffers)):
-            buf.copy_(value)
+            if value is not buf:
+                buf.copy_(value)
         torch.all(self.buffers.done, out=self.all_done)
 
     def capture(self, pool) -> None:

@@ -23,6 +23,7 @@ SOURCES = (
     _PKG / "csrc" / "binned_scan.cu",
     _PKG / "csrc" / "row_gather.cu",
     _PKG / "csrc" / "gather_distance.cu",
+    _PKG / "csrc" / "queue_merge.cu",
 )
 #: headers the sources include; part of the library's hash
 HEADERS = (_PKG / "csrc" / "bf16_tile.cuh",)
@@ -133,5 +134,12 @@ def load() -> ctypes.CDLL:
         # queries, table, idx, out; q, n, k, sub, d, elem_bytes, metric; stream
         fn.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
         fn.restype = ctypes.c_int
+        fn = lib.queue_merge
+        # ids, dists, flags, cand_ids, cand_dists, done (or null), changed,
+        # frontier, frontier_ok; q, cap, c, b; stream
+        fn.argtypes = [ptr] * 9 + [num] * 4 + [ptr]
+        fn.restype = ctypes.c_int
+        lib.queue_merge_threads.argtypes = [num, num]
+        lib.queue_merge_threads.restype = ctypes.c_int
         _lib = lib
     return _lib

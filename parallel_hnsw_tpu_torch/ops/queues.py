@@ -115,3 +115,19 @@ def merge_queue_with_flags(
     out_ids = d_ids[..., :cap]
     changed = torch.any(out_ids != ids, dim=-1)
     return out_ids, d_dists[..., :cap], d_flags[..., :cap], changed
+
+
+def merged_frontier(
+    ids: torch.Tensor, flags: torch.Tensor, count: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The next hop's frontier of a merged queue: ``(slots [..., count]
+    int64, ok [..., count] bool)``, the first ``count`` slots that are
+    unexpanded (flag 0) and not ``EMPTY_ID``, in slot order, with ``ok``
+    set; where there are fewer, the first other slots in slot order fill
+    the rest with ``ok`` clear, so every slot of a row is distinct.  A row
+    has an unexpanded slot exactly where ``ok[..., 0]`` is set.
+    ``count`` is at most the queue's capacity."""
+    open_slot = (flags == 0) & (ids != EMPTY_ID)
+    order = torch.sort((~open_slot).to(torch.uint8), dim=-1, stable=True).indices
+    slots = order[..., :count].contiguous()
+    return slots, torch.gather(open_slot, -1, slots)

@@ -10,8 +10,11 @@ fixed-capacity sorted candidate queue with an "expanded" bit per slot; one
 neighbor rows (the hand-written row-gather kernel on a CUDA source), computes
 the distances of the neighbors' feature rows to the query in one
 gather-and-distance kernel (the rows are never written out; on the CPU its
-plain version, a gather and one batched contraction), and merges via masked
-sort.  The hop loop runs on the host and reads
+plain version, a gather and one batched contraction), and merges them into
+the queue.  The merge also finds the next hop's frontier, which the state
+carries: on the card both are one kernel that updates the queue in place
+(``ops/cuda_queues``; on the CPU its plain version, a masked sort).  The hop
+loop runs on the host and reads
 ``done.all()`` after every hop (the JAX package keeps it inside
 ``lax.while_loop``); the instrumentation counters stay on the device.  On the
 card a long layer search replays its hop from a CUDA graph, one launch a hop
@@ -21,8 +24,9 @@ With ``TRACER`` enabled, each layer search is one ``search_layer`` span with
 the counters ``layer`` (from the top), ``queries`` (rows of the block),
 ``hops``, ``dispatch_s`` (host seconds in the hop bodies, graph launches and
 captures), ``wait_s`` (host seconds in the termination reads, which wait for
-the card), ``graph_hops`` (hops replayed from a graph) and ``captures``
-(graphs captured).
+the card), ``graph_hops`` (hops replayed from a graph), ``captures``
+(graphs captured) and ``merge_kernel_hops`` (hops whose queue update ran the
+queue-merge kernel, eager or replayed: the launches counted over the span).
 """
 
 from __future__ import annotations
@@ -43,12 +47,14 @@ from parallel_hnsw_tpu_torch.graph import (
     source_get,
     vec_to_node,
 )
+from parallel_hnsw_tpu_torch.ops import cuda_queues
 from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
+from parallel_hnsw_tpu_torch.ops.cuda_queues import queue_update
 from parallel_hnsw_tpu_torch.ops.distance import Metric, distance_one
 from parallel_hnsw_tpu_torch.ops.queues import (
     empty_queue,
     merge_queue,
-    merge_queue_with_flags,
+    merged_frontier,
     sort_queue,
 )
 from parallel_hnsw_tpu_torch.params import SearchParams
@@ -66,6 +72,8 @@ class LayerSearchState(NamedTuple):
     improve_hop: torch.Tensor  # [Q] int32 hop index of the last head-improving
     # merge: the batched analogue of the reference's index_sum instrumentation
     # (src/lib.rs:190-229, search_layers_instrumented)
+    frontier: torch.Tensor  # [Q, b] int64 the next hop's slots (ops.queues.merged_frontier)
+    frontier_ok: torch.Tensor  # [Q, b] bool which of them are unexpanded live slots
 
 
 def _auto_max_hops(cap: int, max_hops: int) -> int:
@@ -94,23 +102,20 @@ def _layer_step_fns(
     neighbors = layer.neighbors.contiguous()  # no copy unless the layer holds a view
     n, m = neighbors.shape
     b = min(beam_width, cap)
-    slot_pos = torch.arange(cap, dtype=torch.int32, device=queries.device)
 
     def cond(state: LayerSearchState) -> bool:
         return state.hops < max_hops and not bool(state.done.all())
 
     def body(state: LayerSearchState) -> LayerSearchState:
-        ids, dists, expanded, probes, done, hops, evals, improve_hop = state
-        prev_head = ids[:, 0]
-        # --- select up to `b` nearest unexpanded slots per query
-        frontier = (expanded == 0) & (ids != EMPTY_ID) & ~done[:, None]
-        rank = torch.where(frontier, slot_pos[None, :], cap)
-        neg_rank, sel_slots = torch.topk(-rank, b, dim=-1)  # [Q, b] smallest ranks
-        sel_valid = neg_rank > -cap
+        ids, dists, expanded, probes, done, hops, evals, improve_hop, frontier, frontier_ok = state
+        prev_head = ids[:, 0].clone()  # the card's merge updates ids in place
+        # --- the up to `b` nearest unexpanded slots per query, from the last merge
+        sel_slots = frontier  # [Q, b], distinct slots
+        sel_valid = frontier_ok & ~done[:, None]
         sel_nodes = torch.gather(ids, 1, sel_slots)  # [Q, b]
 
         # mark selected slots expanded (non-frontier picks rewrite their own value)
-        expanded = expanded.scatter(
+        expanded.scatter_(
             1, sel_slots, torch.where(sel_valid, 1, torch.gather(expanded, 1, sel_slots))
         )
 
@@ -133,19 +138,22 @@ def _layer_step_fns(
         flat_ids = torch.where(valid, flat_nodes, EMPTY_ID)
         evals = evals + valid.sum()
 
-        # --- merge into queues
-        ids, dists, expanded, changed = merge_queue_with_flags(
-            ids, dists, expanded, flat_ids, d
+        # --- merge into queues, and the next hop's frontier (done rows keep
+        # theirs: the merge of no candidates leaves them as they are)
+        ids, dists, expanded, changed, frontier, frontier_ok = queue_update(
+            ids, dists, expanded, flat_ids, d, done, frontier, frontier_ok
         )
 
         # --- termination accounting (reference: probe_depth decrement on
-        # non-improving rounds, src/lib.rs:233-238)
+        # non-improving rounds, src/lib.rs:233-238); a queue with no
+        # unexpanded live slot has no valid first pick
         probes = torch.where(~done & ~changed, probes - 1, probes)
-        newly_done = (probes <= 0) | ~torch.any((expanded == 0) & (ids != EMPTY_ID), dim=-1)
+        newly_done = (probes <= 0) | ~frontier_ok[:, 0]
         head_improved = (ids[:, 0] != prev_head) & ~done
         improve_hop = torch.where(head_improved, hops + 1, improve_hop)
         return LayerSearchState(
-            ids, dists, expanded, probes, done | newly_done, hops + 1, evals, improve_hop
+            ids, dists, expanded, probes, done | newly_done, hops + 1, evals, improve_hop,
+            frontier, frontier_ok,
         )
 
     return cond, body
@@ -175,15 +183,23 @@ def _timed_hops(
 
 def _fresh_state(
     ids: torch.Tensor, dists: torch.Tensor, expanded: torch.Tensor, probes: torch.Tensor,
-    done: torch.Tensor,
+    done: torch.Tensor, beam_width: int,
 ) -> LayerSearchState:
-    """A state whose hop, evaluation and improvement counters start at 0."""
+    """A state whose hop, evaluation and improvement counters start at 0,
+    with the first hop's frontier of ``min(beam_width, cap)`` slots taken
+    from the starting queue.  The hops update the state's queues in place,
+    so it holds copies of ``ids`` and ``dists``."""
     dev = ids.device
+    frontier, frontier_ok = merged_frontier(ids, expanded, min(beam_width, ids.shape[1]))
     return LayerSearchState(
-        ids, dists, expanded, probes, done,
+        ids.clone(memory_format=torch.contiguous_format),
+        dists.clone(memory_format=torch.contiguous_format),
+        expanded, probes, done,
         hops=0,
         evals=torch.zeros((), dtype=torch.int64, device=dev),
         improve_hop=torch.zeros((ids.shape[0],), dtype=torch.int32, device=dev),
+        frontier=frontier,
+        frontier_ok=frontier_ok,
     )
 
 
@@ -217,6 +233,7 @@ def search_one_layer(
         torch.zeros((q_count, cap), dtype=torch.int32, device=dev),
         torch.full((q_count,), probe_depth, dtype=torch.int32, device=dev),
         ~torch.any(init_ids != EMPTY_ID, dim=-1),
+        beam_width,
     )
     key = hop_graph.graph_key(
         layer, source, slab, queries, cap, min(beam_width, cap), metric, probe_depth
@@ -248,9 +265,11 @@ def search_one_layer(
         return run_hops(None)[0]
     clock = [0.0, 0.0]
     with TRACER.span("search_layer", layer=layer_index, queries=q_count) as closing:
+        merges = cuda_queues.LAUNCHES["queue_merge"]
         state, graph_hops, captures = run_hops(clock)
         closing.update(hops=state.hops, dispatch_s=clock[0], wait_s=clock[1],
-                       graph_hops=graph_hops, captures=captures)
+                       graph_hops=graph_hops, captures=captures,
+                       merge_kernel_hops=cuda_queues.LAUNCHES["queue_merge"] - merges)
     return state
 
 
@@ -349,10 +368,12 @@ def _host_layer_search(
         )[:2]
     clock = [0.0, 0.0]
     with TRACER.span("search_layer", layer=layer_index, queries=queries.shape[0]) as closing:
+        merges = cuda_queues.LAUNCHES["queue_merge"]
         out_ids, out_dists, hops = _compacting_search(
             layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, clock
         )
-        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1], graph_hops=0, captures=0)
+        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1], graph_hops=0, captures=0,
+                       merge_kernel_hops=cuda_queues.LAUNCHES["queue_merge"] - merges)
     return out_ids, out_dists
 
 
@@ -385,6 +406,7 @@ def _compacting_search(
         torch.zeros((q, cap), dtype=torch.int32, device=dev),
         torch.full((q,), sp.probe_depth, dtype=torch.int32, device=dev),
         ~torch.any(init_ids != EMPTY_ID, dim=-1),
+        sp.beam_width,
     )
     hops_used = 0
     while True:
@@ -405,7 +427,7 @@ def _compacting_search(
         act_queries = act_queries[keep]
         state = _fresh_state(
             state.ids[keep], state.dists[keep], state.expanded[keep], state.probes[keep],
-            state.done[keep],
+            state.done[keep], sp.beam_width,
         )
 
 

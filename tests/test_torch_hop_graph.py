@@ -28,7 +28,7 @@ import torch
 from parallel_hnsw_tpu_torch import DenseSource, Hnsw, Metric, hop_graph
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID
 from parallel_hnsw_tpu_torch.graph import Layer, MemmapSource, PqSource
-from parallel_hnsw_tpu_torch.ops import cuda_gather
+from parallel_hnsw_tpu_torch.ops import cuda_gather, cuda_queues
 from parallel_hnsw_tpu_torch.params import SearchParams
 from parallel_hnsw_tpu_torch.search import LayerSearchState, search, search_stack
 from parallel_hnsw_tpu_torch.utils.trace import TRACER
@@ -170,7 +170,8 @@ def test_a_capture_counts_no_launch_and_each_replay_its_own(monkeypatch):
     state = LayerSearchState(torch.zeros(q, cap, dtype=torch.int32), torch.zeros(q, cap),
                              torch.zeros(q, cap, dtype=torch.int32), torch.ones(q, dtype=torch.int32),
                              torch.zeros(q, dtype=torch.bool), 3, torch.zeros((), dtype=torch.int64),
-                             torch.zeros(q, dtype=torch.int32))
+                             torch.zeros(q, dtype=torch.int32), torch.zeros(q, 2, dtype=torch.int64),
+                             torch.zeros(q, 2, dtype=torch.bool))
     graph = hop_graph.HopGraph(make_body, state, torch.zeros(q, 5))
     graph.load(state, torch.ones(q, 5))
     before = dict(cuda_gather.LAUNCHES)
@@ -374,6 +375,57 @@ def test_replayed_hops_count_their_launches(device, card_index, fresh_graphs):
         captures = sum(c for _, _, c in spans)
         assert sum(g for _, g, _ in spans) > 0 and (captures > 0 if call == 0 else captures == 0)
         assert ran == {"gather_distance": hops, "row_gather": hops + 1}
+
+
+@pytest.mark.cuda
+def test_every_hop_runs_the_merge_kernel(device, card_index, fresh_graphs):
+    """One ``queue_merge`` launch a hop, eager or replayed, and the spans'
+    ``merge_kernel_hops`` count them."""
+    hnsw, queries = card_index
+    for _ in range(2):  # the first captures, the second replays from the first hop
+        before = cuda_queues.LAUNCHES["queue_merge"]
+        TRACER.enabled = True
+        TRACER.events.clear()
+        try:
+            search_stack(hnsw.layers, hnsw.source, hnsw.metric, queries[:300], SearchParams())
+            torch.cuda.synchronize()
+            spans = [e.counters for e in TRACER.events if e.name == "search_layer"]
+        finally:
+            TRACER.enabled = False
+            TRACER.events.clear()
+        hops = sum(c["hops"] for c in spans)
+        assert hops > 0 and sum(c["graph_hops"] for c in spans) > 0
+        assert [c["merge_kernel_hops"] for c in spans] == [c["hops"] for c in spans]
+        assert cuda_queues.LAUNCHES["queue_merge"] - before == hops
+
+
+@pytest.mark.cuda
+def test_layer_search_equals_the_plain_update_on_the_card(device, card_index, fresh_graphs,
+                                                          monkeypatch):
+    """Every field of the bottom layer's final state, with the hop's queue
+    update by the kernel (eager, and replayed) and by its plain version on
+    the same CUDA tensors."""
+    from parallel_hnsw_tpu_torch import search as search_module
+    from parallel_hnsw_tpu_torch.search import _entry_seed, _enter_layer, search_one_layer
+
+    hnsw, queries = card_index
+    layer = hnsw.layers[-1]
+    init = _enter_layer(layer, *_entry_seed(hnsw.layers, hnsw.source, hnsw.metric, queries, 300))
+
+    def run():
+        return search_one_layer(layer, hnsw.source, hnsw.metric, queries, *init,
+                                probe_depth=2, beam_width=4, max_hops=0)
+
+    with monkeypatch.context() as m:
+        m.setattr(search_module, "queue_update", cuda_queues.plain_queue_update)
+        before = cuda_queues.LAUNCHES["queue_merge"]
+        want = _eager(monkeypatch, run)
+        assert cuda_queues.LAUNCHES["queue_merge"] == before
+    assert want.hops > K
+    _assert_same(_eager(monkeypatch, run), want)
+    got, spans = _traced(run)
+    assert spans[0][1] > 0
+    _assert_same(got, want)
 
 
 @pytest.mark.cuda

@@ -210,6 +210,45 @@ def test_search_stack_counters(graphs):
     assert state.hops == 0 and int(state.evals) == 0 and bool(state.done.all())
 
 
+@pytest.mark.parametrize("beam_width, max_hops", [(4, 0), (1, 0), (8, 0), (4, 3)])
+def test_layer_state_with_the_carried_frontier_matches_jax(exact_graphs, beam_width, max_hops):
+    """``search_one_layer`` on the bottom layer, each hop expanding the
+    frontier the last merge carried: every field of JAX's final state (ids,
+    distances, expanded flags, probes, done, hops, evaluations, improvement
+    hops), and after 3 hops the carried frontier of the rows still searching
+    is the one JAX's next hop picks by top-k."""
+    from parallel_hnsw_tpu.search import search_one_layer as jax_search_one_layer
+    from parallel_hnsw_tpu_torch.search import search_one_layer
+
+    je, te, queries = exact_graphs
+    cap, node = 48, 5
+    start = ((queries - te.source.vectors[node].numpy()) ** 2).sum(-1).astype(np.float32)
+    init_ids = np.full((Q, cap), EMPTY_ID, np.int32)
+    init_d = np.full((Q, cap), np.inf, np.float32)
+    init_ids[:, 0], init_d[:, 0] = node, start
+    jl, tl = je.layers[-1], te.layers[-1]
+    kw = dict(probe_depth=2, beam_width=beam_width, max_hops=max_hops)
+    want = jax_search_one_layer(jl, je.source, je.metric, jnp.asarray(queries),
+                                jnp.asarray(init_ids), jnp.asarray(init_d), **kw)
+    got = search_one_layer(tl, te.source, te.metric, torch.from_numpy(queries),
+                           torch.from_numpy(init_ids), torch.from_numpy(init_d), **kw)
+    for field in ("ids", "dists", "expanded", "probes", "done", "improve_hop"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
+    assert got.hops == int(want.hops) > 0 and int(got.evals) == int(want.evals)
+    searching = ~got.done
+    if max_hops:
+        assert bool(searching.any())
+    b = min(beam_width, cap)
+    rank = np.where((np.asarray(want.expanded) == 0) & (np.asarray(want.ids) != EMPTY_ID),
+                    np.arange(cap), cap)
+    picks = np.argsort(rank, axis=1, kind="stable")[:, :b]
+    ok = np.take_along_axis(rank, picks, 1) < cap
+    f, f_ok = got.frontier.numpy(), got.frontier_ok.numpy()
+    for r in np.flatnonzero(searching.numpy()):
+        np.testing.assert_array_equal(f_ok[r], ok[r])
+        np.testing.assert_array_equal(f[r][f_ok[r]], picks[r][ok[r]])
+
+
 # -- the hop loop's spans -------------------------------------------------------
 
 
@@ -251,6 +290,18 @@ def test_layer_spans_count_the_hops_of_one_block(exact_graphs):
         c = e.counters
         assert c["dispatch_s"] > 0 and c["wait_s"] > 0
         assert c["dispatch_s"] + c["wait_s"] <= e.seconds
+
+
+def test_layer_spans_count_no_merge_kernel_hop_on_the_cpu(exact_graphs):
+    """A CPU tensor's hops merge by the plain version: ``merge_kernel_hops``
+    is on every span, and 0."""
+    _, te, queries = exact_graphs
+    q = torch.from_numpy(queries)
+    for adaptive in (False, True):
+        _, events = _layer_spans(lambda: search(te.layers, te.source, te.metric, q, SP_EXACT,
+                                                adaptive=adaptive))
+        assert events and all(e.counters["merge_kernel_hops"] == 0 for e in events)
+        assert sum(e.counters["hops"] for e in events) > 0
 
 
 def test_layer_spans_show_every_query_block(exact_graphs):
