@@ -194,7 +194,7 @@ from parallel_hnsw_tpu_torch import (
     serialize_sharded_hnsw,
     serialize_sharded_quantized_hnsw,
 )
-from parallel_hnsw_tpu_torch import analysis
+from parallel_hnsw_tpu_torch import analysis, flat
 from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID
 from parallel_hnsw_tpu_torch.graph import (
@@ -259,7 +259,7 @@ STOCHASTIC_RECALL_FLOOR = 0.99
 
 # The flat scan: width, sizes and the floor that catches a broken kernel.
 FLAT_DIM = 128
-FLAT_TILE_C = analysis.FLAT_TILE_C
+FLAT_TILE_C = flat.TILE_C
 FLAT_SLOTS = 32  # folded_scan's default, which fast_flat_knn uses
 FLAT_SIZES = ((1 << 20, "binned"), (1 << 21, "folded"))
 FLAT_RECALL_FLOOR = 0.95
@@ -723,9 +723,9 @@ def check_scan_kernels(device, vecs: torch.Tensor) -> dict:
         # the dispatches, at their defaults, as fast_flat_knn calls them
         scan = cuda_scan.binned_scan if mode == "binned" else cuda_scan.folded_scan
         bd, bc = scan(xb, yb, metric, tile_c=FLAT_TILE_C, exact=False)
-        cut_ms = _median_ms(lambda: analysis._cut_survivors(bd, bc, 0, k_scan))
-        cand = analysis._cut_survivors(bd, bc, 0, k_scan)[0]
-        rerank_ms = _median_ms(lambda: analysis._rerank(source, x, cand, metric, 10))
+        cut_ms = _median_ms(lambda: flat.cut_survivors(bd, bc, 0, k_scan))
+        cand = flat.cut_survivors(bd, bc, 0, k_scan)[0]
+        rerank_ms = _median_ms(lambda: flat.rerank_blocks(source, metric, x, cand, x.shape[0]))
         cast_ms = _median_ms(lambda: cuda_scan.scan_operand(source.vectors))
         print(f"flat scan stages at {rows} rows, one {SCAN_QUERY_BLOCK}-query block ({mode}): "
               f"kernel {kernel['ms']:.3f} ms, survivor cut (top-{k_scan} of {bd.shape[1]} bins + "

@@ -46,8 +46,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.analysis import _cut_survivors, blocked_topk_pairwise
+from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
 from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE
+from parallel_hnsw_tpu_torch.flat import block_scan, blocked_scan, exact_rerank
 from parallel_hnsw_tpu_torch.graph import (
     DenseSource,
     Layer,
@@ -62,8 +63,6 @@ from parallel_hnsw_tpu_torch.graph import (
 )
 from parallel_hnsw_tpu_torch.index import Hnsw
 from parallel_hnsw_tpu_torch.io import from_numpy, to_numpy
-from parallel_hnsw_tpu_torch.ops.cuda_distance import best_pairwise_distance, prepare_operand
-from parallel_hnsw_tpu_torch.ops.cuda_scan import binned_scan, scan_operand
 from parallel_hnsw_tpu_torch.ops.distance import Metric
 from parallel_hnsw_tpu_torch.ops.queues import dedup_sorted, sort_queue
 from parallel_hnsw_tpu_torch.params import BuildParams, OptimizationParams, PqBuildParams, SearchParams
@@ -76,7 +75,6 @@ from parallel_hnsw_tpu_torch.pq import (
     quantize_binned,
     random_centroids,
 )
-from parallel_hnsw_tpu_torch.routing import exact_rerank
 from parallel_hnsw_tpu_torch.search import search as graph_search
 from parallel_hnsw_tpu_torch.utils.trace import TRACER
 
@@ -199,32 +197,13 @@ def _shard_rows(local: Source, start: int, stop: int) -> torch.Tensor:
 
 def _shard_flat_scan(local: Source, queries: torch.Tensor, metric: Metric, k_scan: int,
                      fast: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One shard's blocked flat scan over its local source, in blocks of
-    ``1 << 19`` rows: the binned-scan kernel when ``fast`` and the shard
-    holds >= 200k rows, else the pairwise kernel (fast or exact mode).
-    Returns ``(best_i, best_d)``: local row ids and scan-precision distances,
-    ``k_scan`` wide, sorted by ``(dist, id)``."""
-    n_s = local.count
-    binned = fast and n_s >= 200_000
-    blk = 1 << 19
-    q_op = scan_operand(queries) if binned else prepare_operand(queries, metric, exact=not fast)
-    best_i = best_d = None
-    for cs in range(0, n_s, blk):
-        vecs = _shard_rows(local, cs, min(cs + blk, n_s)).contiguous()
-        kk = min(k_scan, vecs.shape[0])
-        if binned:
-            bd, bc = binned_scan(q_op, scan_operand(vecs), metric, tile_c=4096, exact=False)
-        else:
-            y = prepare_operand(vecs, metric, exact=not fast)
-            bd, bc = best_pairwise_distance(q_op, y, metric, exact=not fast), None
-        del vecs
-        idx, dd = _cut_survivors(bd, bc, cs, kk)
-        if best_i is None:
-            best_i, best_d = idx, dd
-        else:
-            s_i, s_d = sort_queue(torch.cat([best_i, idx], -1), torch.cat([best_d, dd], -1))
-            best_i, best_d = s_i[:, :k_scan], s_d[:, :k_scan]
-    return best_i, best_d
+    """One shard's blocked flat scan over its local source, all its queries
+    at once, by :func:`~parallel_hnsw_tpu_torch.flat.block_scan`'s kernel
+    and blocks.  Returns ``(best_i, best_d)``: local row ids and
+    scan-precision distances, ``k_scan`` wide, sorted by ``(dist, id)``."""
+    mode, block = block_scan(local.count, fast)
+    return blocked_scan(queries, lambda start, stop: _shard_rows(local, start, stop), local.count,
+                        metric, mode, k_scan, block, max(1, queries.shape[0]))
 
 
 def _merge(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], k: int, device: torch.device,
@@ -479,17 +458,22 @@ class ShardedHnsw:
         ``oversample * k`` survivors and an in-shard full-precision rerank of
         them), then the top-k merge across shards.  The mesh-scale
         counterpart of :meth:`Hnsw.search_exact`."""
+        return self._scan_shards(queries, k, k * oversample if fast else k, fast,
+                                 lambda s: self.shard_source(s) if fast else None)
+
+    def _scan_shards(self, queries: torch.Tensor, k: int, k_scan: int, fast: bool,
+                     rerank: Callable[[int], Optional[Source]]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every shard's :func:`_shard_flat_scan` of ``k_scan`` survivors,
+        rescored in the shard against ``rerank(s)``'s rows where it gives a
+        source (``EMPTY`` -> +inf), as global ids merged to the top ``k``."""
         parts = []
         for s, dev in enumerate(self.mesh.devices.flat):
-            local = self._shards[s].source
+            local = self.shard_source(s)
             q = queries.to(dev).contiguous()
-            n_s = local.count
-            k_scan = min(k * oversample, n_s) if fast else min(k, n_s)
-            best_i, best_d = _shard_flat_scan(local, q, self.metric, k_scan, fast)
-            if fast:
-                # in-shard exact rerank of the survivors (EMPTY -> +inf)
-                d = source_distance(local, q, best_i, self.metric)
-                best_i, best_d = sort_queue(best_i, d)
+            best_i, best_d = _shard_flat_scan(local, q, self.metric, min(k_scan, local.count), fast)
+            full = rerank(s)
+            if full is not None:
+                best_i, best_d = sort_queue(best_i, source_distance(full, q, best_i, self.metric))
             parts.append(self._to_global(s, best_i, best_d, k))
         return _merge(parts, k, self.mesh.first, dedup=True)
 
@@ -823,16 +807,8 @@ class ShardedQuantizedHnsw:
             ids, _ = sh.search_exact(queries, k=oversample * k, fast=fast)
             ids, dists = self._host_rerank(queries, ids)
             return ids[:, :k], dists[:, :k]
-        parts = []
-        for s, dev in enumerate(sh.mesh.devices.flat):
-            local = sh.shard_source(s)
-            q = queries.to(dev).contiguous()
-            k_scan = min(k * oversample, local.count)
-            best_i, _ = _shard_flat_scan(local, q, sh.metric, k_scan, fast)
-            d = source_distance(DenseSource(vectors=self._full[s]), q, best_i, sh.metric)
-            best_i, d = sort_queue(best_i, d)
-            parts.append(sh._to_global(s, best_i, d, k))
-        return _merge(parts, k, sh.mesh.first, dedup=True)
+        return sh._scan_shards(queries, k, k * oversample, fast,
+                               lambda s: DenseSource(vectors=self._full[s]))
 
     def _host_rerank(self, queries: torch.Tensor, ids: torch.Tensor):
         return exact_rerank(self.full_host, self.sharded.metric, queries.to(ids.device), ids)

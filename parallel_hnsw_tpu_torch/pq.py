@@ -31,8 +31,13 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.analysis import _cut_survivors, blocked_topk_pairwise
+from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
 from parallel_hnsw_tpu_torch.constants import ID_DTYPE
+# the code scan reaches its survivor cut and its decode (``reconstruct``)
+# through this module's globals, at call time: benchmark/pq_faults.py plants
+# its faults there
+from parallel_hnsw_tpu_torch.flat import block_scan, blocked_scan, exact_rerank
+from parallel_hnsw_tpu_torch.flat import cut_survivors as _cut_survivors
 from parallel_hnsw_tpu_torch.graph import (
     DenseSource,
     MemmapSource,
@@ -45,11 +50,9 @@ from parallel_hnsw_tpu_torch.graph import (
     widen_codes,
 )
 from parallel_hnsw_tpu_torch.index import Hnsw
-from parallel_hnsw_tpu_torch.ops.cuda_distance import best_pairwise_distance, prepare_operand
 from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
 from parallel_hnsw_tpu_torch.ops.cuda_scan import binned_scan, scan_operand
 from parallel_hnsw_tpu_torch.ops.distance import Metric, check_fp32_matmul, pairwise_distance
-from parallel_hnsw_tpu_torch.ops.queues import sort_queue
 from parallel_hnsw_tpu_torch.params import (
     BuildParams,
     OptimizationParams,
@@ -57,7 +60,6 @@ from parallel_hnsw_tpu_torch.params import (
     SearchParams,
 )
 from parallel_hnsw_tpu_torch.progress import ProgressMonitor, ensure_monitor
-from parallel_hnsw_tpu_torch.routing import exact_rerank
 from parallel_hnsw_tpu_torch.utils import device as _device
 from parallel_hnsw_tpu_torch.utils.trace import TRACER
 
@@ -709,7 +711,8 @@ class QuantizedHnsw:
         scan keeps ``oversample * k`` survivors per query and the exact
         full-precision rerank cuts back to ``k``; from 200k codes the scan is
         the binned kernel on blocks of >= 2^19 codes, below it the pairwise
-        kernel (fast mode, or exact without ``rerank``).
+        kernel (fast mode, or exact without ``rerank``): the choice of
+        :func:`~parallel_hnsw_tpu_torch.flat.block_scan`.
 
         Each query block is traced as ``pq_scan``, waiting for the card:
         ``queries`` (rows of the block), ``code_blocks`` and ``decoded_rows``
@@ -718,39 +721,17 @@ class QuantizedHnsw:
         pq_src = self.hnsw.source
         if not isinstance(pq_src, PqSource):
             raise TypeError(f"the code graph's source is a {type(pq_src).__name__}, not a PqSource")
-        metric = self.hnsw.metric
         n = pq_src.count
-        binned = rerank and n >= 200_000
-        exact = not rerank
-        k_scan = k * oversample if rerank else k
-        if binned:
-            code_block = max(code_block, 1 << 19)
-        out_i, out_d = [], []
-        for qs in range(0, queries.shape[0], query_block):
-            q = queries[qs : qs + query_block].contiguous()
-            with TRACER.span("pq_scan", sync=q, queries=q.shape[0]) as closing:
-                q_op = scan_operand(q) if binned else prepare_operand(q, metric, exact=exact)
-                best_i = best_d = None
-                blocks = decoded = 0
-                for cs in range(0, n, code_block):
-                    feats = reconstruct(pq_src.codebook, pq_src.codes[cs : cs + code_block])
-                    blocks, decoded = blocks + 1, decoded + feats.shape[0]
-                    kk = min(k_scan, feats.shape[0])
-                    if binned:
-                        bd, bc = binned_scan(q_op, scan_operand(feats), metric, tile_c=4096, exact=False)
-                    else:
-                        feats_op = prepare_operand(feats, metric, exact=exact)
-                        bd, bc = best_pairwise_distance(q_op, feats_op, metric, exact=exact), None
-                    idx, dd = _cut_survivors(bd, bc, cs, kk)
-                    if best_i is None:
-                        best_i, best_d = idx, dd
-                    else:
-                        s_i, s_d = sort_queue(torch.cat([best_i, idx], -1), torch.cat([best_d, dd], -1))
-                        best_i, best_d = s_i[:, :k_scan], s_d[:, :k_scan]
-                closing.update(code_blocks=blocks, decoded_rows=decoded, survivors=best_i.numel())
-            out_i.append(best_i)
-            out_d.append(best_d)
-        ids, dists = torch.cat(out_i), torch.cat(out_d)
+        mode, code_block = block_scan(n, rerank, code_block)
+
+        def decode(start: int, stop: int) -> torch.Tensor:
+            return reconstruct(pq_src.codebook, pq_src.codes[start:stop])
+
+        ids, dists = blocked_scan(
+            queries, decode, n, self.hnsw.metric, mode, k * oversample if rerank else k,
+            code_block, query_block, cut=_cut_survivors,
+            span=lambda q: TRACER.span("pq_scan", sync=q, queries=q.shape[0]),
+        )
         if rerank:
             ids, dists = self._rerank(queries, ids)
         return ids[:, :k], dists[:, :k]

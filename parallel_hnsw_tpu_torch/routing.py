@@ -9,7 +9,9 @@ under that gather: project the corpus once to a narrow routing matrix
 projection preserves distance *order* well enough to steer traversal), score
 every hop against routing rows, and restore exact ranking with one
 full-precision rerank of the final candidate queue: the same
-oversample-then-rerank contract as the fast flat scans.
+oversample-then-rerank contract as the fast flat scans
+(:func:`~parallel_hnsw_tpu_torch.flat.exact_rerank`, which this module
+exports under the JAX package's name for it).
 
 ``dr=None`` skips the projection and just casts to bf16: halved traffic with
 near-exact routing, for corpora whose dimension is already small.
@@ -28,18 +30,11 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from parallel_hnsw_tpu_torch.constants import EMPTY_DIST, EMPTY_ID, ID_DTYPE
-from parallel_hnsw_tpu_torch.graph import (
-    Layer,
-    Source,
-    is_host_source,
-    node_to_vec,
-    source_effective_width,
-    source_get,
-)
+from parallel_hnsw_tpu_torch.constants import ID_DTYPE
+from parallel_hnsw_tpu_torch.flat import exact_rerank  # noqa: F401
+from parallel_hnsw_tpu_torch.graph import Layer, Source, node_to_vec, source_get
 from parallel_hnsw_tpu_torch.ops.cuda_gather import row_gather
-from parallel_hnsw_tpu_torch.ops.distance import Metric, batched_distance, check_fp32_matmul
-from parallel_hnsw_tpu_torch.ops.queues import sort_queue
+from parallel_hnsw_tpu_torch.ops.distance import Metric, check_fp32_matmul
 
 
 class RoutingCache(NamedTuple):
@@ -119,40 +114,6 @@ def build_routing(
 def route_queries(cache: RoutingCache, queries: torch.Tensor, metric: Metric) -> torch.Tensor:
     """Apply the cache's transform to queries (kept f32 for stable ordering)."""
     return _transform(queries, cache.projection, metric)
-
-
-def exact_rerank(
-    source: Source,
-    metric: Metric,
-    queries: torch.Tensor,  # [Q, D] original (unprojected) queries
-    ids: torch.Tensor,  # [Q, ef] vector ids, EMPTY-padded
-    block_budget: int = 1 << 30,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-precision rescore + (dist, id) resort of candidate queues.
-
-    Shared by routed graph search and the PQ pipeline (reference rerank
-    contract: src/pq.rs:354-363).  Blocked over queries so the gathered
-    ``[qb, ef, width]`` block honors the memory budget.  A host
-    (out-of-core) source gathers each block's candidate rows on the host and
-    moves only that ``[qb, ef, D]`` block to the queries' device: the corpus
-    never reaches it (reference seam: src/pq.rs:133-142).
-    """
-    metric = Metric(metric)
-    ef = ids.shape[1]
-    qb = max(16, block_budget // max(1, ef * source_effective_width(source) * 4))
-    host = {"device": queries.device} if is_host_source(source) else {}
-    out_i, out_d = [], []
-    for qs in range(0, queries.shape[0], qb):
-        block_ids = ids[qs : qs + qb]
-        cand = source_get(source, block_ids, **host)
-        d = batched_distance(queries[qs : qs + qb], cand, metric)
-        d = torch.where(block_ids == EMPTY_ID, EMPTY_DIST, d)
-        r_ids, r_d = sort_queue(block_ids, d)
-        out_i.append(r_ids)
-        out_d.append(r_d)
-    if len(out_i) == 1:
-        return out_i[0], out_d[0]
-    return torch.cat(out_i), torch.cat(out_d)
 
 
 # ---------------------------------------------------------------------------

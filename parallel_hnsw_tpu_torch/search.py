@@ -159,28 +159,6 @@ def _layer_step_fns(
     return cond, body
 
 
-def _timed_hops(
-    cond: Callable[[LayerSearchState], bool],
-    body: Callable[[LayerSearchState], LayerSearchState],
-    state: LayerSearchState,
-    clock: List[float],
-) -> LayerSearchState:
-    """The hop loop ``while cond: body``, adding the host seconds spent in
-    ``body`` to ``clock[0]`` and in ``cond`` to ``clock[1]`` (two clock reads
-    a hop)."""
-    now = time.perf_counter
-    t = now()
-    while True:
-        going = cond(state)
-        t_cond = now()
-        clock[1] += t_cond - t
-        if not going:
-            return state
-        state = body(state)
-        t = now()
-        clock[0] += t - t_cond
-
-
 def _fresh_state(
     ids: torch.Tensor, dists: torch.Tensor, expanded: torch.Tensor, probes: torch.Tensor,
     done: torch.Tensor, beam_width: int,
@@ -261,16 +239,28 @@ def search_one_layer(
         finally:
             lock.release()
 
+    def traced(clock: Optional[List[float]]) -> Tuple[LayerSearchState, int, int, int]:
+        state, graph_hops, captures = run_hops(clock)
+        return state, state.hops, graph_hops, captures
+
+    return _layer_span(layer_index, q_count, traced)
+
+
+def _layer_span(layer_index: int, q_count: int, run: Callable):
+    """``run(clock)``'s result, where ``run`` is a layer search that returns
+    ``(result, hops, graph_hops, captures)``.  With ``TRACER`` on it runs
+    inside the layer's ``search_layer`` span with a clock, and the span gets
+    the counters of the module docstring; off, it runs without a clock."""
     if not TRACER.enabled:
-        return run_hops(None)[0]
+        return run(None)[0]
     clock = [0.0, 0.0]
     with TRACER.span("search_layer", layer=layer_index, queries=q_count) as closing:
         merges = cuda_queues.LAUNCHES["queue_merge"]
-        state, graph_hops, captures = run_hops(clock)
-        closing.update(hops=state.hops, dispatch_s=clock[0], wait_s=clock[1],
+        out, hops, graph_hops, captures = run(clock)
+        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1],
                        graph_hops=graph_hops, captures=captures,
                        merge_kernel_hops=cuda_queues.LAUNCHES["queue_merge"] - merges)
-    return state
+    return out
 
 
 def _timed(fn: Callable, clock: Optional[List[float]], slot: int):
@@ -285,12 +275,22 @@ def _timed(fn: Callable, clock: Optional[List[float]], slot: int):
 
 
 def _hops(cond: Callable, body: Callable, state, clock: Optional[List[float]]):
-    """``while cond: body``, timed into ``clock`` when one is given."""
-    if clock is not None:
-        return _timed_hops(cond, body, state, clock)
-    while cond(state):
+    """The hop loop ``while cond: body``.  A ``clock`` gets the host seconds
+    spent in ``body`` added to ``clock[0]`` and in ``cond`` to ``clock[1]``
+    (two clock reads a hop); without one the loop reads no clock."""
+    timed = clock is not None
+    t = time.perf_counter() if timed else 0.0
+    while True:
+        going = cond(state)
+        if timed:
+            t_cond = time.perf_counter()
+            clock[1] += t_cond - t
+        if not going:
+            return state
         state = body(state)
-    return state
+        if timed:
+            t = time.perf_counter()
+            clock[0] += t - t_cond
 
 
 def _layer_hops(
@@ -362,19 +362,13 @@ def _host_layer_search(
     nothing is compiled here, so the batch is exactly the unconverged rows.
     With the tracer on, the whole layer search is one ``search_layer`` span.
     """
-    if not TRACER.enabled:
-        return _compacting_search(
-            layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, None
-        )[:2]
-    clock = [0.0, 0.0]
-    with TRACER.span("search_layer", layer=layer_index, queries=queries.shape[0]) as closing:
-        merges = cuda_queues.LAUNCHES["queue_merge"]
+    def traced(clock: Optional[List[float]]):
         out_ids, out_dists, hops = _compacting_search(
             layer, source, metric, queries, init_ids, init_dists, sp, chunk_hops, clock
         )
-        closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1], graph_hops=0, captures=0,
-                       merge_kernel_hops=cuda_queues.LAUNCHES["queue_merge"] - merges)
-    return out_ids, out_dists
+        return (out_ids, out_dists), hops, 0, 0
+
+    return _layer_span(layer_index, queries.shape[0], traced)
 
 
 def _compacting_search(
@@ -390,7 +384,7 @@ def _compacting_search(
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The chunked loop of :func:`_host_layer_search`; returns the found
     queues and the hops run.  A ``clock`` gathers the hop loop's host
-    seconds as :func:`_timed_hops` does."""
+    seconds as :func:`_hops` does."""
     q, cap = init_ids.shape
     dev = queries.device
     max_hops = _auto_max_hops(cap, sp.max_hops)

@@ -120,3 +120,110 @@ def test_hnsw_search_exact_fast_path():
     np.testing.assert_allclose(d_fast.numpy(), d_exact.numpy(), atol=1e-5)
     ids_os, _ = idx.search_exact(queries, k=5, query_block=4, fast=True, oversample=2)
     np.testing.assert_array_equal(ids_os.numpy(), ids_exact.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the blocked flat scan (``flat.blocked_scan``) under each of its callers
+
+
+def _pq_index(n, rng):
+    from parallel_hnsw_tpu_torch import QuantizedHnsw
+    from parallel_hnsw_tpu_torch.graph import PqSource
+
+    # distinct codes: no two rows tie in the scan, so its survivors are unique
+    pairs = rng.choice(256 * 256, n, replace=False)
+    codes = torch.from_numpy(np.stack([pairs // 256, pairs % 256], 1).astype(np.int16))
+    codes = codes.view(torch.uint16)
+    books = torch.from_numpy(rng.normal(size=(2, 256, 4)).astype(np.float32))
+    full = DenseSource(torch.from_numpy(_unit(n, 8, 21)))
+    return QuantizedHnsw(None, Hnsw([], PqSource(codes=codes, codebook=books), Metric.EUCLIDEAN,
+                                    BuildParams()), full)
+
+
+def _sharded_scan(blocks, monkeypatch):
+    from parallel_hnsw_tpu_torch.parallel import Mesh, ShardedHnsw
+    from parallel_hnsw_tpu_torch.parallel import sharded
+
+    rows = [DenseSource(torch.from_numpy(_unit(3000, 8, 22 + s))) for s in range(2)]
+    gids = np.arange(6000, dtype=np.int32).reshape(2, 3000)
+    sh = ShardedHnsw.from_shard_sources(rows, gids, Mesh(["cpu"] * 2), metric=Metric.EUCLIDEAN,
+                                        build_graphs=False)
+    with monkeypatch.context() as m:
+        if blocks > 1:  # a shard's block is a constant; cut it to 1000 rows here
+            real = sharded.block_scan
+            m.setattr(sharded, "block_scan", lambda n, fast: (real(n, fast)[0], 1000))
+        return sh.search_exact(torch.from_numpy(_unit(30, 8, 24)), k=10, fast=True)
+
+
+def _blocked_scan_case(caller, blocks, monkeypatch):
+    """``caller``'s answer with its corpus cut into ``blocks`` > 1 scan blocks,
+    or into one."""
+    rng = np.random.default_rng(20)
+    if caller.startswith("flat"):
+        src, queries = DenseSource(torch.from_numpy(_unit(10_000, 16, 20))), torch.from_numpy(
+            _unit(50, 16, 25))
+        # on the CPU a block is at least 4096 rows: 3 blocks, or the whole corpus
+        return ta.fast_flat_knn(src, queries, Metric.EUCLIDEAN, 10, query_block=16,
+                                corpus_block=128 if blocks > 1 else 10_000,
+                                scan_mode=caller.split("-")[1])
+    if caller.startswith("topk"):
+        feats = torch.from_numpy(_unit(700, 12, 20))
+        return ta.blocked_topk_pairwise(feats, feats, Metric.NORMALIZED_COSINE, 9,
+                                        col_block=300 if blocks > 1 else 700,
+                                        exclude_diag_offset=0, fast=caller == "topk-fast")
+    if caller.startswith("pq"):
+        return _pq_index(5000, rng).search_exact(
+            torch.from_numpy(_unit(40, 8, 26)), k=10, rerank=caller == "pq-fast",
+            code_block=700 if blocks > 1 else 5000, query_block=16)
+    return _sharded_scan(blocks, monkeypatch)
+
+
+@pytest.mark.parametrize("caller", ["flat-exhaustive", "flat-binned", "topk-exact", "topk-fast",
+                                    "pq-exact", "pq-fast", "sharded"])
+def test_blocked_scan_merges_blocks_as_one(caller, monkeypatch):
+    """Every caller of the shared blocked scan: a corpus cut into several
+    scan blocks gives the same ids and distances as the same scan in one
+    block (the merge keeps each block's survivors by ``(dist, id)``)."""
+    many_i, many_d = _blocked_scan_case(caller, 3, monkeypatch)
+    one_i, one_d = _blocked_scan_case(caller, 1, monkeypatch)
+    assert torch.equal(many_i, one_i) and torch.equal(many_d, one_d)
+    assert bool((many_d[:, 1:] >= many_d[:, :-1]).all())
+
+
+@pytest.mark.parametrize("n", [199_999, 200_000, 1_999_999, 2_000_000])
+def test_each_caller_keeps_its_scan_route(n, monkeypatch):
+    """The kernel (mode) and corpus block each caller hands the shared scan,
+    on both sides of 200,000 and 2,000,000 rows: the flat scan exhaustive,
+    binned or folded; the PQ and shard scans binned on 2^19-row blocks from
+    200k rows when fast and never folded; the brute-force tiers pairwise
+    only.  The corpora are views of one row; nothing is scanned."""
+    from parallel_hnsw_tpu_torch import analysis, pq
+    from parallel_hnsw_tpu_torch.graph import PqSource
+    from parallel_hnsw_tpu_torch.parallel import sharded
+
+    seen = []
+
+    def scan(queries, corpus, rows, metric, mode, k_scan, block, query_block, **kw):
+        seen.append((mode, block))
+        return torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1))
+
+    for module in (analysis, pq, sharded):
+        monkeypatch.setattr(module, "blocked_scan", scan)
+    q = torch.zeros((1, 8))
+    dense = DenseSource(torch.zeros((1, 8)).expand(n, 8))
+    rows = torch.zeros((1, 1)).expand(n, 1)
+    codes = PqSource(codes=torch.zeros((1, 2), dtype=torch.int32).expand(n, 2),
+                     codebook=torch.zeros((2, 4, 4)))
+    ta.fast_flat_knn(dense, q, Metric.EUCLIDEAN, 10)
+    index = pq.QuantizedHnsw(None, Hnsw([], codes, Metric.EUCLIDEAN, BuildParams()), dense)
+    monkeypatch.setattr(index, "_rerank", lambda queries, ids: (ids, ids.float()))
+    for fast in (True, False):
+        index.search_exact(q, rerank=fast)
+        sharded._shard_flat_scan(codes, q, Metric.EUCLIDEAN, 40, fast)
+        ta.blocked_topk_pairwise(q[:, :1], rows, Metric.EUCLIDEAN, 1, fast=fast)
+    flat = "folded" if n >= 2_000_000 else "binned" if n >= 200_000 else "exhaustive"
+    code = "binned" if n >= 200_000 else "exhaustive"
+    code_block = 1 << 19 if n >= 200_000 else 1 << 16
+    assert [mode for mode, _ in seen] == [flat, code, code, "exhaustive", "exact", "exact", "exact"]
+    assert [block for _, block in seen[1:]] == [code_block, 1 << 19, 1 << 16, 1 << 16, 1 << 19,
+                                                1 << 16]
