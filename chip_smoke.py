@@ -52,7 +52,13 @@ Phases, each printed as it ends:
    kernel, of the plain version and of the library chain it replaced
    (``merge_queue_with_flags``'s four sorts and gathers + the frontier's
    ``torch.topk``), each replayed from a CUDA graph, beside its bound by
-   bytes;
+   bytes; then the hop in two launches (the expand kernel and the
+   queue-merge kernel with the termination accounting) against the torch hop
+   (``hop_graph.fuses`` refused) bit for bit over 20 hops at the graph
+   cells' shape (8,192 and 100 rows of 300 slots + 192 candidates over a
+   290,000 x 256 f32 layer of M 48), and the device time of a hop of each,
+   20 hops replayed from one CUDA graph, with each hop's count of device
+   operations under ``torch.profiler``, beside the hop's bound by bytes;
 5. the corpus of ``--count`` random 100-d unit vectors and 10,000 held-out
    ones (numpy seed 42) goes through the reference's file format: written
    as an ``.fvecs`` file to a temporary directory and read back with
@@ -194,7 +200,7 @@ from parallel_hnsw_tpu_torch import (
     serialize_sharded_hnsw,
     serialize_sharded_quantized_hnsw,
 )
-from parallel_hnsw_tpu_torch import analysis, flat
+from parallel_hnsw_tpu_torch import analysis, flat, hop_graph
 from parallel_hnsw_tpu_torch.analysis import blocked_topk_pairwise
 from parallel_hnsw_tpu_torch.constants import EMPTY_ID
 from parallel_hnsw_tpu_torch.graph import (
@@ -217,7 +223,7 @@ from parallel_hnsw_tpu_torch.ops.distance import (
     pairwise_distance,
     pairwise_distance_bf16_dots,
 )
-from parallel_hnsw_tpu_torch.search import auto_query_block
+from parallel_hnsw_tpu_torch.search import LayerSearchState, _layer_step_fns, auto_query_block
 from parallel_hnsw_tpu_torch.search import search as graph_search
 from parallel_hnsw_tpu_torch.native import load_vecio
 from parallel_hnsw_tpu_torch.utils.data import random_unit_corpus
@@ -285,6 +291,10 @@ HOP_QUERIES, HOP_CANDIDATES = 8192, 4 * 48
 GATHER_DISTANCE_ATOL = 2e-5
 # The hop's queue update at ef 300: the batch cell's block and an online call
 MERGE_CAP, MERGE_ROWS = 300, (HOP_QUERIES, 100)
+# The hop at the graph cells' shape (nytimes-256-angular's bottom layer at
+# M0 48, ef 300, beam 4), timed over this many hops from one state
+HOP_LAYER_ROWS, HOP_DIM, HOP_M, HOP_BEAM = 290_000, 256, 48, 4
+HOP_TIMED_HOPS = 20
 # Held-out search QPS of this script's phase 6 on an NVIDIA H100 80GB HBM3 at
 # 700 W while the hop still gathered with torch indexing; printed beside
 # today's so a slow gather kernel is seen.
@@ -984,6 +994,232 @@ def check_queue_merge_kernel(device) -> dict:
     return {**batch, "online": online}
 
 
+def _hop_state(layer: Layer, table: torch.Tensor, queries: torch.Tensor, gen) -> LayerSearchState:
+    """A layer search's state at ef ``MERGE_CAP``: queues of random nodes at
+    their distances, half of the slots expanded, the frontier they give,
+    probes that do not run out in the timed hops (no row finishes early)."""
+    rows = queries.shape[0]
+    seeds = torch.randint(0, layer.node_count, (rows, MERGE_CAP), generator=gen,
+                          dtype=torch.int32).to(queries.device)
+    d = cuda_gather.cuda_gather_distance(queries, table, seeds, Metric.NORMALIZED_COSINE)
+    dev = seeds.device
+    ids, dists = merge_queue_with_flags(
+        torch.full((rows, MERGE_CAP), EMPTY_ID, dtype=torch.int32, device=dev),
+        torch.full((rows, MERGE_CAP), float("inf"), device=dev),
+        torch.zeros((rows, MERGE_CAP), dtype=torch.int32, device=dev), seeds, d)[:2]
+    flags = torch.randint(0, 2, (rows, MERGE_CAP), generator=gen, dtype=torch.int32).to(ids.device)
+    frontier, ok = merged_frontier(ids, flags, HOP_BEAM)
+    return LayerSearchState(
+        ids, dists, flags, torch.full((rows,), 1 << 20, dtype=torch.int32, device=dev),
+        torch.zeros((rows,), dtype=torch.bool, device=dev), 0,
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.zeros((rows,), dtype=torch.int32, device=dev), frontier, ok)
+
+
+def _hop_body(layer, table, queries, fused: bool, all_done=None):
+    """The eager hop over ``layer`` and ``table`` (a dense source): the two
+    launches (with the graph's ``all_done`` flag, as a replay runs them), or
+    the torch hop (``hop_graph.fuses`` refused while it is built)."""
+    build = lambda: _layer_step_fns(layer, DenseSource(table), Metric.NORMALIZED_COSINE, queries,
+                                    MERGE_CAP, HOP_BEAM, 1 << 20, all_done=all_done)[1]
+    if fused:
+        return build()
+    rule = hop_graph.fuses
+    hop_graph.fuses = lambda device_type, kind: False
+    try:
+        return build()
+    finally:
+        hop_graph.fuses = rule
+
+
+def _plain_hop_body(layer, table, queries):
+    """The hop by the plain versions of its two kernels,
+    ``cuda_gather.plain_hop_expand`` and ``cuda_queues.plain_hop_update``,
+    into new tensors."""
+    def hop(state: LayerSearchState) -> LayerSearchState:
+        ids, dists, expanded, probes, done, hops, evals, improve_hop, frontier, ok = state
+        expanded, cand_ids, cand_dists, evals = cuda_gather.plain_hop_expand(
+            queries, table, layer.nodes, layer.neighbors, ids, expanded, frontier, ok, done, evals,
+            Metric.NORMALIZED_COSINE)
+        ids, dists, expanded, frontier, ok, probes, done, improve_hop = cuda_queues.plain_hop_update(
+            ids, dists, expanded, cand_ids, cand_dists, done, frontier, ok, probes, improve_hop,
+            hops + 1)
+        return LayerSearchState(ids, dists, expanded, probes, done, hops + 1, evals, improve_hop,
+                                frontier, ok)
+    return hop
+
+
+def _clone_state(state: LayerSearchState) -> LayerSearchState:
+    return LayerSearchState(*(v.clone() if isinstance(v, torch.Tensor) else v for v in state))
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    if want.is_floating_point():
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), what
+
+
+def _hop_kernels_against_plain(layer, table, queries, state: LayerSearchState, where: str):
+    """One hop from ``state`` by ``cuda_hop_expand`` and ``cuda_hop_update``
+    and by their plain versions on the same CUDA tensors: the expanded
+    flags, candidate ids and ``evals`` bit for bit and the distances within
+    ``GATHER_DISTANCE_ATOL``, then the update of the kernel's candidates bit
+    for bit (queues, flags, frontier, probes, ``done``, improvement hops).
+    Returns the distances' largest gap, the candidates and the distinct
+    table rows they read."""
+    metric = Metric.NORMALIZED_COSINE
+    k, p = _clone_state(state), _clone_state(state)
+    p_flags, p_ids, p_d, p_evals = cuda_gather.plain_hop_expand(
+        queries, table, layer.nodes, layer.neighbors, p.ids, p.expanded, p.frontier,
+        p.frontier_ok, p.done, p.evals, metric)
+    k_flags, k_ids, k_d, k_evals = cuda_gather.cuda_hop_expand(
+        queries, table, layer.nodes, layer.neighbors, k.ids, k.expanded, k.frontier,
+        k.frontier_ok, k.done, k.evals, metric)
+    for what, g, w in (("expanded", k_flags, p_flags), ("candidate ids", k_ids, p_ids),
+                       ("evals", k_evals, p_evals)):
+        _same_bits(g, w, f"hop_expand's {what} differ from its plain version's {where}")
+    assert torch.equal(torch.isinf(k_d), torch.isinf(p_d)), f"hop_expand's empty slots differ {where}"
+    live = torch.isfinite(p_d)
+    err = float((k_d[live] - p_d[live]).abs().max())
+    assert err <= GATHER_DISTANCE_ATOL, f"hop_expand's distances differ by {err} {where}"
+    args = (k.ids, k.dists, k_flags, k_ids, k_d, k.done, k.frontier, k.frontier_ok, k.probes,
+            k.improve_hop, state.hops + 1)
+    want = cuda_queues.plain_hop_update(*args)
+    got = cuda_queues.cuda_hop_update(*args)
+    names = ("ids", "dists", "expanded", "frontier", "frontier_ok", "probes", "done", "improve_hop")
+    for what, g, w in zip(names, got, want):
+        _same_bits(g, w, f"cuda_hop_update's {what} differ from its plain version's {where}")
+    valid = k_ids != EMPTY_ID
+    distinct = torch.unique(layer.nodes[k_ids[valid].long()]).numel()
+    return err, int(valid.sum()), distinct
+
+
+def _replayed_hop_ms(body, state: LayerSearchState, reps: int = 7) -> float:
+    """Median device time of one hop: ``HOP_TIMED_HOPS`` hops of ``body``
+    captured in one CUDA graph over buffers that are set to ``state``
+    before each replay, outside the timed events."""
+    work = LayerSearchState(*(v.clone() if isinstance(v, torch.Tensor) else v for v in state))
+
+    def restore():
+        for buf, value in zip(work, state):
+            if isinstance(value, torch.Tensor):
+                buf.copy_(value)
+
+    def hops():
+        s = work
+        for _ in range(HOP_TIMED_HOPS):
+            s = body(s)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        restore()
+        hops()  # warm on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hops()
+    times = []
+    for _ in range(reps):
+        restore()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / HOP_TIMED_HOPS)
+    return float(np.median(times))
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) of one call of ``fn``
+    under ``torch.profiler``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def check_two_launch_hop(device) -> dict:
+    """The hop in two launches at the graph cells' shape, hop after hop for
+    ``HOP_TIMED_HOPS`` hops: its kernels against their plain versions
+    (``plain_hop_expand`` + ``plain_hop_update``) on the same CUDA tensors,
+    and the whole hop against the torch hop, bit for bit in every field.
+    Then the device time and operations of a hop of each, replayed from a
+    CUDA graph over a device hop counter as a search replays it, beside the
+    hop's bounds: the distinct table rows of a hop read once, and every
+    gathered row read."""
+    gen = torch.Generator().manual_seed(18)
+    table = torch.nn.functional.normalize(
+        torch.randn(HOP_LAYER_ROWS, HOP_DIM, generator=gen), dim=-1).to(device)
+    neighbors = torch.randint(0, HOP_LAYER_ROWS, (HOP_LAYER_ROWS, HOP_M), generator=gen,
+                              dtype=torch.int32)
+    neighbors[torch.rand(HOP_LAYER_ROWS, HOP_M, generator=gen) < 0.1] = EMPTY_ID
+    layer = Layer(torch.arange(HOP_LAYER_ROWS, dtype=torch.int32, device=device),
+                  neighbors.to(device))
+    c = HOP_BEAM * HOP_M
+    out = {}
+    for rows in MERGE_ROWS:
+        queries = torch.nn.functional.normalize(torch.randn(rows, HOP_DIM, generator=gen),
+                                                dim=-1).to(device)
+        state = _hop_state(layer, table, queries, gen)
+        flag = torch.zeros((), dtype=torch.bool, device=device)
+        fused, torch_hop = _hop_body(layer, table, queries, True, flag), \
+            _hop_body(layer, table, queries, False)
+        plain = _plain_hop_body(layer, table, queries)
+        got = want = state
+        max_err, gathered, distinct = 0.0, [], []
+        for hop in range(1, HOP_TIMED_HOPS + 1):
+            where = f"at {rows} rows, hop {hop}"
+            err, n_valid, n_distinct = _hop_kernels_against_plain(layer, table, queries, got, where)
+            max_err = max(max_err, err)
+            gathered.append(n_valid)
+            distinct.append(n_distinct)
+            got = fused(_clone_state(got))
+            want = torch_hop(_clone_state(want))
+            for field, g, w in zip(want._fields, got, want):
+                if isinstance(w, torch.Tensor):
+                    _same_bits(g, w, f"the two-launch hop's {field} differs from the torch hop's {where}")
+                else:
+                    assert g == w
+        # as a search replays it: the hop number in a device counter
+        counted = state._replace(hops=torch.zeros((), dtype=torch.int32, device=device))
+        ops = {name: _device_ops(lambda body=body, s=_clone_state(counted): body(s))
+               for name, body in (("fused", fused), ("torch", torch_hop), ("plain", plain))}
+        f1, p1, p2, f2 = (_replayed_hop_ms(b, counted) for b in (fused, torch_hop, torch_hop, fused))
+        plain_ms = _replayed_hop_ms(plain, counted)
+        # a row's queue read and written, its neighbor ids and vector ids, its
+        # query, frontier read and written, probes, done and improvement hop;
+        # beside them the table's rows, each distinct row of a hop read once
+        # (the mean over the checked hops) or every gathered row read
+        io = rows * (MERGE_CAP * 12 * 2 + c * (4 + 4) + HOP_DIM * 4 + HOP_BEAM * 9 * 2 + 9)
+        flops = 2.0 * rows * c * HOP_DIM
+        rows_once = float(np.mean(distinct))
+        bound = _bound(flops, PEAK_FP32_FLOPS, io + rows_once * HOP_DIM * 4)
+        every_row = _bound(flops, PEAK_FP32_FLOPS, io + rows * c * HOP_DIM * 4)
+        ms, torch_ms = min(f1, f2), min(p1, p2)
+        print(f"two-launch hop at [{rows} x ({MERGE_CAP} + {c})] over [{HOP_LAYER_ROWS} x {HOP_DIM}] "
+              f"f32, M {HOP_M}: over {HOP_TIMED_HOPS} hops its kernels match plain_hop_expand + "
+              f"plain_hop_update (distances within {max_err:.3e}, the rest bit for bit) and the "
+              f"hop matches the torch hop bit for bit; a hop {f1:.4f} / {f2:.4f} ms in "
+              f"{ops['fused']} device operations; the torch hop {p1:.4f} / {p2:.4f} ms in "
+              f"{ops['torch']} (the two launches {torch_ms / ms:.2f}x faster); the plain pair "
+              f"{plain_ms:.4f} ms in {ops['plain']}; a hop gathers {np.mean(gathered):.0f} rows "
+              f"({rows_once:.0f} distinct); bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+              f"with the distinct rows read once, {every_row['bound_ms']:.4f} ms by "
+              f"{every_row['bound_by']} with every gathered row read; the hop at "
+              f"{bound['bound_ms'] / ms:.1%} / {every_row['bound_ms'] / ms:.1%} of them")
+        out[rows] = {"shape": f"{rows} x ({MERGE_CAP} + {c}) over [{HOP_LAYER_ROWS} x {HOP_DIM}]",
+                     "ms": ms, "device_ops": ops["fused"], "torch_hop_ms": torch_ms,
+                     "torch_hop_device_ops": ops["torch"], "plain_ms": plain_ms,
+                     "plain_device_ops": ops["plain"], "max_abs_err": max_err,
+                     "rows_gathered": float(np.mean(gathered)), "rows_read_once": rows_once,
+                     **bound, "every_row_bound_ms": every_row["bound_ms"]}
+    batch, online = (out[r] for r in MERGE_ROWS)
+    return {**batch, "online": online}
+
+
 def _timed_s(fn, reps: int = 3):
     """``(result, median seconds)`` of ``fn`` over ``reps`` runs after a warm-up."""
     out = fn()
@@ -1243,7 +1479,7 @@ def _device_profile(label: str, fn, wall_ms=None) -> None:
     rows.sort(key=lambda r: -r[1])
     # the twelve largest, and the port's own kernels wherever they stand
     own = ("pairwise_kernel", "operand_kernel", "scan_kernel", "row_sq_norms", "row_gather_kernel",
-           "gather_distance_kernel")
+           "gather_distance_kernel", "queue_merge_kernel")
     for key, ms, count in rows[:12] + [r for r in rows[12:] if any(name in r[0] for name in own)]:
         print(f"  {ms:9.2f} ms {count:7d} x  {key[:100]}")
     for name in ("gather_distance_kernel", "row_gather_kernel"):
@@ -2488,7 +2724,8 @@ def main() -> None:
     gather = check_gather_kernel(device)
     gather_distance = check_gather_distance_kernel(device)
     queue_merge = check_queue_merge_kernel(device)
-    t = _phase("4 gather and queue-merge kernel checks", t)
+    two_launch_hop = check_two_launch_hop(device)
+    t = _phase("4 gather, queue-merge and two-launch hop checks", t)
 
     # 5. the corpus through the reference's file format, then the build
     drawn = random_unit_corpus(args.count + QUERIES, DIM, seed=42, device="cpu").vectors.numpy()
@@ -2553,17 +2790,17 @@ def main() -> None:
                              max(layer.neighborhood_size for layer in hnsw.layers))
     blocks = -(-QUERIES // block)
     print(f"launches in one search pass of {QUERIES} queries ({blocks} query blocks): "
-          f"gather_distance {hop_launches['gather_distance']} (the hop's candidate rows and their "
-          f"distances), row_gather {hop_launches['row_gather']} (the hop's neighbor rows, and the "
-          f"entry vector once per block), queue_merge {hop_launches['queue_merge']} (the hop's "
-          f"queue update)")
+          f"hop_expand {hop_launches['hop_expand']} (the hop's frontier, neighbor rows and "
+          f"distances), queue_merge {hop_launches['queue_merge']} (the hop's queue update and "
+          f"termination accounting), row_gather {hop_launches['row_gather']} (the entry vector "
+          f"once per block), gather_distance {hop_launches['gather_distance']}")
     assert torch.equal(one_ids, ids), "a second search pass answered differently"
-    # every hop launches each kernel once; the row gather no longer carries feature rows
-    assert hop_launches["gather_distance"] > 0, "the search did not run the gather-and-distance kernel"
-    assert hop_launches["row_gather"] == hop_launches["gather_distance"] + blocks, (
-        "the row gather ran more than the hop's neighbor rows and the entry vector")
-    assert hop_launches["queue_merge"] == hop_launches["gather_distance"], (
-        "a hop did not update its queue by the queue-merge kernel")
+    # every hop is the two launches; the gather kernels only fetch the entry vector
+    assert hop_launches["hop_expand"] > 0, "the search did not run the hop's expand kernel"
+    assert hop_launches["queue_merge"] == hop_launches["hop_expand"], (
+        "a hop did not run as the two launches")
+    assert hop_launches["row_gather"] == blocks and hop_launches["gather_distance"] == 0, (
+        "the hop ran a gather kernel besides its two launches")
     t = _phase("6 search", t)
 
     # 7. the other traversals
@@ -2706,6 +2943,15 @@ def main() -> None:
             "replaces": None,
             "launches": hop_launches["queue_merge"],
             **queue_merge,
+        },
+        {
+            "name": "two_launch_hop",
+            "route": "cuda",
+            "source": "parallel_hnsw_tpu_torch/csrc/gather_distance.cu (hop_expand) and "
+                      "parallel_hnsw_tpu_torch/csrc/queue_merge.cu",
+            "replaces": "scripts/gather_kernel_study.py:34",
+            "launches": hop_launches["hop_expand"] + hop_launches["queue_merge"],
+            **two_launch_hop,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

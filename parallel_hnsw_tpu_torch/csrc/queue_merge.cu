@@ -11,6 +11,17 @@
 // gives it no candidates, and a merge of empties into a queue that a merge
 // made is the identity.
 //
+// With probes given, the kernel ends each row that is not done with the
+// hop's termination accounting (search.py's unfused hop; reference:
+// probe_depth decrement on non-improving rounds, src/lib.rs:233-238):
+//   probes[q]      -= 1 where the merge did not change the queue
+//   done[q]         = probes[q] <= 0, or the new queue has no frontier slot
+//   improve_hop[q]  = the hop's number where the head's id changed
+//   all_done        cleared where the row is still going (may be null)
+// The hop's number is *hop_counter where that is given (a CUDA graph's
+// device counter, which the hop's expand advanced), else hop_number.
+// changed may then be null.
+//
 // Replaces no Pallas kernel.  In the JAX package this step is one
 // lax.sort(num_keys=2, is_stable=True) that XLA compiles, and the next hop's
 // frontier a top_k (parallel_hnsw_tpu/ops/queues.py, search.py).  The port
@@ -214,18 +225,29 @@ __device__ __forceinline__ Merged merged_at(const Rows& r, int m) {
   return e;
 }
 
+// The hop's termination accounting (see the header); null probes: none.
+struct Accounting {
+  int* probes;              // [Q] int32
+  int* improve_hop;         // [Q] int32
+  const int* hop_counter;   // the hop's number on the device, or null
+  int hop_number;           // the hop's number where hop_counter is null
+  unsigned char* all_done;  // cleared where a row is still going, or null
+};
+
 __global__ void queue_merge_kernel(int* __restrict__ ids, uint32_t* __restrict__ dists,
                                    int* __restrict__ flags, const int* __restrict__ cand_ids,
                                    const uint32_t* __restrict__ cand_dists,
-                                   const unsigned char* __restrict__ done,
+                                   unsigned char* __restrict__ done,
                                    unsigned char* __restrict__ changed,
                                    long long* __restrict__ frontier,
-                                   unsigned char* __restrict__ frontier_ok, int cap, int c, int b) {
+                                   unsigned char* __restrict__ frontier_ok, int cap, int c, int b,
+                                   Accounting acc) {
   const long long row = blockIdx.x;
   if (done != nullptr && done[row]) {
-    if (threadIdx.x == 0) changed[row] = 0;
+    if (threadIdx.x == 0 && changed != nullptr) changed[row] = 0;
     return;
   }
+  __shared__ int new_head;
   extern __shared__ __align__(16) unsigned char smem[];
   const Rows r = carve(smem, cap, c);
   const int n = cap + c, pc = pow2_at_least(c), pq = pow2_at_least(cap);
@@ -298,6 +320,7 @@ __global__ void queue_merge_kernel(int* __restrict__ ids, uint32_t* __restrict__
                   : live + empty + (m - live_before - empty_before);
     before += e.part;
     if (out < cap) {
+      if (out == 0) new_head = e.id;
       row_ids[out] = e.id;
       row_dists[out] = e.bits;
       row_flags[out] = e.flag;
@@ -332,7 +355,19 @@ __global__ void queue_merge_kernel(int* __restrict__ ids, uint32_t* __restrict__
       }
     }
   }
-  if (tid == 0) changed[row] = diff != 0;
+  if (tid != 0) return;
+  if (changed != nullptr) changed[row] = diff != 0;
+  if (acc.probes != nullptr) {
+    const int probes = acc.probes[row] - (diff == 0);
+    acc.probes[row] = probes;
+    if (new_head != static_cast<int>(r.qid[0]))
+      acc.improve_hop[row] = acc.hop_counter != nullptr ? *acc.hop_counter : acc.hop_number;
+    if (probes <= 0 || open_total == 0) {
+      done[row] = 1;
+    } else if (acc.all_done != nullptr) {
+      *acc.all_done = 0;
+    }
+  }
 }
 
 }  // namespace
@@ -348,14 +383,20 @@ extern "C" int queue_merge_threads(int cap, int c) {
 
 // ids, flags [q, cap] int32, dists [q, cap] f32, updated in place; cand_ids
 // [q, c] int32, cand_dists [q, c] f32; done [q] bool or null; changed [q]
-// bool; frontier [q, b] int64 and frontier_ok [q, b] bool, updated in place
-// (rows that are done keep theirs).  Every buffer contiguous.
+// bool (may be null with probes given); frontier [q, b] int64 and
+// frontier_ok [q, b] bool, updated in place (rows that are done keep
+// theirs).  probes, improve_hop [q] int32 (with done, updated in place by
+// the termination accounting), hop_counter (int32) and all_done (bool) may
+// be null.  Every buffer contiguous.
 extern "C" int queue_merge(int* ids, float* dists, int* flags, const int* cand_ids,
-                           const float* cand_dists, const unsigned char* done,
+                           const float* cand_dists, unsigned char* done,
                            unsigned char* changed, long long* frontier,
-                           unsigned char* frontier_ok, int q, int cap, int c, int b,
-                           void* stream) {
-  if (q < 0 || cap <= 0 || c <= 0 || b <= 0 || b > cap || cap + c > MAX_WIDTH)
+                           unsigned char* frontier_ok, int* probes, int* improve_hop,
+                           const int* hop_counter, int hop_number, unsigned char* all_done,
+                           int q, int cap, int c, int b, void* stream) {
+  if (q < 0 || cap <= 0 || c <= 0 || b <= 0 || b > cap || cap + c > MAX_WIDTH ||
+      (probes != nullptr && (done == nullptr || improve_hop == nullptr)) ||
+      (probes == nullptr && changed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (q == 0) return static_cast<int>(cudaSuccess);
   const long long smem = smem_bytes(cap, c);
@@ -368,6 +409,6 @@ extern "C" int queue_merge(int* ids, float* dists, int* flags, const int* cand_i
                        static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       ids, reinterpret_cast<uint32_t*>(dists), flags, cand_ids,
       reinterpret_cast<const uint32_t*>(cand_dists), done, changed, frontier, frontier_ok, cap,
-      c, b);
+      c, b, Accounting{probes, improve_hop, hop_counter, hop_number, all_done});
   return static_cast<int>(cudaGetLastError());
 }

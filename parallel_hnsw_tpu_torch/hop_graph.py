@@ -1,23 +1,22 @@
 """One hop of the lockstep layer search, replayed from a CUDA graph.
 
-Python dispatches each hop of :func:`~parallel_hnsw_tpu_torch.search.search_one_layer`
-as a few tens of kernels: gathers, scatters and elementwise masks around the
-hand-written ``row_gather``, ``gather_distance`` and ``queue_merge`` kernels.
-At a small batch most of them run for a few microseconds and the host's
-dispatch, 15-20 us a launch, is the hop's time.  A CUDA graph captures the
-hop once and replays it with one launch.
+On the card a hop of :func:`~parallel_hnsw_tpu_torch.search.search_one_layer`
+over a dense source or a hop slab (:func:`fuses`) is two hand-written
+launches, the expand and the queue merge, each of which the host dispatches
+in 15-20 us.  A CUDA graph captures the hop once and replays it with one
+launch.
 
 :class:`HopGraph` holds the state the hop reads and writes in static
 buffers, a ``LayerSearchState`` whose ``hops`` is a device counter: the
 queues, expanded flags, probes, ``done``, the evaluation count, the
 improvement hops, the frontier, and beside them the layer's queries.  Its hop
 (:meth:`HopGraph.step`) is the eager hop's body, the same kernels in the same
-order, followed by copies of its results over the buffers it read (none for
-the queues, flags and frontier, which the hop updates in place), so every
-replay advances the state in place and the state after ``n`` replays is the
-eager loop's after ``n`` hops, bit for bit.  The same hop also reduces
-``done`` into one flag, so the host's termination read is one small copy and
-no extra launch.
+order, which updates every buffer in place (the expand advances the counter),
+so every replay advances the state and the state after ``n`` replays is the
+eager loop's after ``n`` hops, bit for bit.  The same hop keeps one flag of
+whether every row is done (the expand sets it, the merge clears it where a
+row is still going), so the host's termination read is one small copy and no
+extra launch.
 
 A layer search captures (:func:`should_capture`) where the hop runs wholly on
 a CUDA device (a dense source, a hop slab or the routing rows; a memmap or PQ
@@ -84,11 +83,18 @@ def source_kind(source, slab: Optional[torch.Tensor]) -> str:
     return "other"
 
 
+def fuses(device_type: str, kind: str) -> bool:
+    """Whether a hop on ``device_type`` reading a ``kind`` source runs as the
+    two hop launches (``search._layer_step_fns``)."""
+    return device_type == "cuda" and kind in GRAPH_KINDS
+
+
 def should_capture(device_type: str, kind: str, rows: int, hops_run: int) -> bool:
     """Whether a layer search over ``rows`` queries on ``device_type``,
     reading a ``kind`` source, that has run ``hops_run`` eager hops without
-    converging captures its hop."""
-    return (device_type == "cuda" and kind in GRAPH_KINDS and 0 < rows <= MAX_GRAPH_ROWS
+    converging captures its hop: a hop of two launches, at most
+    ``MAX_GRAPH_ROWS`` rows."""
+    return (fuses(device_type, kind) and 0 < rows <= MAX_GRAPH_ROWS
             and hops_run >= CAPTURE_AFTER_HOPS)
 
 
@@ -129,14 +135,16 @@ class HopGraph:
     """A layer search's state in static buffers and the hop that advances it
     in place, replayed from a CUDA graph once :meth:`capture` has run.
 
-    ``make_body`` builds the eager hop over the static ``queries`` buffer: a
-    function from a ``LayerSearchState`` to the next, whose ``hops`` here is
-    the device counter.  It is called once, inside the capture, so whatever it
-    allocates lives in the graph's pool, and dropped after it, so the graph
-    holds none of the tensors it reads.  ``like`` is a ``LayerSearchState``
-    whose tensors give the buffers' shapes and types."""
+    ``make_body(all_done)`` builds the eager hop over the static ``queries``
+    buffer: a function that advances a ``LayerSearchState`` in place (its
+    ``hops`` here is the device counter) and returns it, and which leaves
+    ``all_done`` reading whether every row is done.  It is called once, inside the
+    capture, so whatever it allocates lives in the graph's pool, and dropped
+    after it, so the graph holds none of the tensors it reads.  ``like`` is a
+    ``LayerSearchState`` whose tensors give the buffers' shapes and types."""
 
-    def __init__(self, make_body: Callable[[], Callable], like: NamedTuple, queries: torch.Tensor):
+    def __init__(self, make_body: Callable[[torch.Tensor], Callable], like: NamedTuple,
+                 queries: torch.Tensor):
         dev = queries.device
         self.queries = queries
         self.buffers = type(like)(*(
@@ -161,15 +169,14 @@ class HopGraph:
         torch.all(self.buffers.done, out=self.all_done)
 
     def step(self) -> None:
-        """One hop: the eager hop's kernels on the buffers, its results copied
-        over them (where it did not update them in place), and ``done``
-        reduced into :attr:`all_done`."""
+        """One hop: the eager hop's kernels on the buffers and on
+        :attr:`all_done`, all of them updated in place, so a replay copies
+        nothing."""
         if self._body is None:
-            self._body = self._make_body()
-        for buf, value in zip(self.buffers, self._body(self.buffers)):
-            if value is not buf:
-                buf.copy_(value)
-        torch.all(self.buffers.done, out=self.all_done)
+            self._body = self._make_body(self.all_done)
+        out = self._body(self.buffers)
+        if not all(value is buf for buf, value in zip(self.buffers, out)):
+            raise RuntimeError("the hop did not update its buffers in place")
 
     def capture(self, pool) -> None:
         """Capture :meth:`step` into a graph on the current stream (not the

@@ -134,10 +134,18 @@ def load() -> ctypes.CDLL:
         # queries, table, idx, out; q, n, k, sub, d, elem_bytes, metric; stream
         fn.argtypes = [ptr] * 4 + [num] * 7 + [ptr]
         fn.restype = ctypes.c_int
+        fn = lib.hop_expand
+        # queries, table, nodes (or null), neighbors, ids, expanded, frontier,
+        # frontier_ok, done, cand_ids, out, evals, counter (or null), all_done
+        # (or null); q, n, d, elem_bytes, metric, cap, b, m, n_layer; stream
+        fn.argtypes = [ptr] * 14 + [num] * 9 + [ptr]
+        fn.restype = ctypes.c_int
         fn = lib.queue_merge
-        # ids, dists, flags, cand_ids, cand_dists, done (or null), changed,
-        # frontier, frontier_ok; q, cap, c, b; stream
-        fn.argtypes = [ptr] * 9 + [num] * 4 + [ptr]
+        # ids, dists, flags, cand_ids, cand_dists, done (or null), changed (or
+        # null), frontier, frontier_ok, probes (or null), improve_hop,
+        # hop_counter (or null); hop_number; all_done (or null); q, cap, c, b;
+        # stream
+        fn.argtypes = [ptr] * 12 + [num] + [ptr] + [num] * 4 + [ptr]
         fn.restype = ctypes.c_int
         lib.queue_merge_threads.argtypes = [num, num]
         lib.queue_merge_threads.restype = ctypes.c_int

@@ -14,6 +14,12 @@ The kernel updates the queue, its flags and the frontier in place; rows
 whose ``done`` is set are left as they are.  :func:`plain_queue_update`
 computes the same, bit for bit, into new tensors: it is what a CPU tensor
 takes and what the card's tests hold the kernel to.
+
+:func:`cuda_hop_update` is the same launch with the hop's termination
+accounting at the end of each row (probes, ``done``, the improvement hop and
+the flag a CUDA graph's host reads): the second of the card's two hop
+launches (``search.py``), after ``cuda_gather.cuda_hop_expand``.  Its plain
+version is :func:`plain_hop_update`.
 """
 
 from __future__ import annotations
@@ -91,6 +97,46 @@ def plain_queue_update(
             torch.where(keep, frontier, m_front), torch.where(keep, frontier_ok, m_ok))
 
 
+def _launch(name: str, ids, dists, flags, cand_ids, cand_dists, done, changed, frontier,
+            frontier_ok, accounting=()) -> None:
+    """One launch of the queue-merge kernel for ``name``'s wrapper, after
+    the checks every launch needs; ``accounting`` is ``(probes,
+    improve_hop, hop, all_done)`` or empty."""
+    q, cap = ids.shape
+    c, b = cand_ids.shape[1], frontier.shape[1]
+    if cap + c > MAX_WIDTH:
+        raise ValueError(f"a queue of {cap} slots and {c} candidates is {cap + c} entries a row, "
+                         f"over the queue-merge kernel's MAX_WIDTH of {MAX_WIDTH}")
+    if c == 0:
+        raise ValueError("no candidates to merge")
+    if ids.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {ids.device}")
+    probes, improve_hop, hop, all_done = accounting or (None, None, 0, None)
+    in_place = [ids, dists, flags, frontier, frontier_ok]
+    if accounting:
+        in_place += [probes, improve_hop, done]
+    if not all(t.is_contiguous() for t in in_place):
+        raise ValueError(f"{name} updates contiguous tensors in place")
+    if q == 0:
+        return
+    cand_ids, cand_dists = cand_ids.contiguous(), cand_dists.contiguous()
+    done = done.contiguous() if done is not None else None
+    counter = hop if isinstance(hop, torch.Tensor) else None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _native.load()
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.queue_merge(
+            ids.data_ptr(), dists.data_ptr(), flags.data_ptr(), cand_ids.data_ptr(),
+            cand_dists.data_ptr(), ptr(done), ptr(changed), frontier.data_ptr(),
+            frontier_ok.data_ptr(), ptr(probes), ptr(improve_hop), ptr(counter),
+            0 if counter is not None else int(hop), ptr(all_done), q, cap, c, b, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"queue_merge kernel launch failed: CUDA error {err}")
+    LAUNCHES["queue_merge"] += 1
+
+
 def cuda_queue_update(
     ids: torch.Tensor,
     dists: torch.Tensor,
@@ -109,34 +155,89 @@ def cuda_queue_update(
     place and returned, ``changed [Q] bool`` is new.  The in-place tensors
     must be contiguous; ``cap + c`` is at most :data:`MAX_WIDTH`."""
     _check(ids, dists, flags, cand_ids, cand_dists, done, frontier, frontier_ok)
-    q, cap = ids.shape
-    c, b = cand_ids.shape[1], frontier.shape[1]
-    if cap + c > MAX_WIDTH:
-        raise ValueError(f"a queue of {cap} slots and {c} candidates is {cap + c} entries a row, "
-                         f"over the queue-merge kernel's MAX_WIDTH of {MAX_WIDTH}")
-    if c == 0:
-        raise ValueError("no candidates to merge")
-    if ids.device.type != "cuda":
-        raise ValueError(f"cuda_queue_update needs CUDA tensors, got {ids.device}")
-    if not all(t.is_contiguous() for t in (ids, dists, flags, frontier, frontier_ok)):
-        raise ValueError("cuda_queue_update updates contiguous tensors in place")
-    changed = torch.empty((q,), dtype=torch.bool, device=ids.device)
-    if q == 0:
-        return ids, dists, flags, changed, frontier, frontier_ok
-    cand_ids, cand_dists = cand_ids.contiguous(), cand_dists.contiguous()
-    done = done.contiguous() if done is not None else None
-    lib = _native.load()
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.queue_merge(
-            ids.data_ptr(), dists.data_ptr(), flags.data_ptr(), cand_ids.data_ptr(),
-            cand_dists.data_ptr(), done.data_ptr() if done is not None else None,
-            changed.data_ptr(), frontier.data_ptr(), frontier_ok.data_ptr(), q, cap, c, b, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"queue_merge kernel launch failed: CUDA error {err}")
-    LAUNCHES["queue_merge"] += 1
+    changed = torch.empty((ids.shape[0],), dtype=torch.bool, device=ids.device)
+    _launch("cuda_queue_update", ids, dists, flags, cand_ids, cand_dists, done, changed, frontier,
+            frontier_ok)
     return ids, dists, flags, changed, frontier, frontier_ok
+
+
+HopUpdate = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check_accounting(done, probes, improve_hop, hop) -> None:
+    q = done.shape[0]
+    for name, t in (("probes", probes), ("improve_hop", improve_hop)):
+        if t.dtype != torch.int32 or t.shape != (q,) or t.device != done.device:
+            raise ValueError(f"need {name} [{q}] int32 on {done.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if isinstance(hop, torch.Tensor) and (hop.dtype != torch.int32 or hop.shape != ()
+                                          or hop.device != done.device):
+        raise ValueError(f"need a hop counter: an int32 scalar on {done.device}, got {hop.dtype} "
+                         f"{tuple(hop.shape)} on {hop.device}")
+
+
+def plain_hop_update(
+    ids: torch.Tensor,
+    dists: torch.Tensor,
+    flags: torch.Tensor,
+    cand_ids: torch.Tensor,
+    cand_dists: torch.Tensor,
+    done: torch.Tensor,
+    frontier: torch.Tensor,
+    frontier_ok: torch.Tensor,
+    probes: torch.Tensor,
+    improve_hop: torch.Tensor,
+    hop,
+) -> HopUpdate:
+    """Plain PyTorch version of :func:`cuda_hop_update`, into new tensors:
+    ``(ids, dists, flags, frontier, frontier_ok, probes, done, improve_hop)``.
+    The queue update of :func:`plain_queue_update`, then for each row that
+    was not done: ``probes`` less 1 where the merge left the queue as it was;
+    ``done`` where ``probes`` reached 0 or the new queue has no frontier
+    slot; ``improve_hop`` = ``hop`` (this hop's number, counted from 1: an
+    integer or an int32 scalar tensor) where the head's id changed."""
+    _check_accounting(done, probes, improve_hop, hop)
+    m_ids, m_dists, m_flags, changed, m_front, m_ok = plain_queue_update(
+        ids, dists, flags, cand_ids, cand_dists, done, frontier, frontier_ok)
+    going = ~done
+    m_probes = torch.where(going & ~changed, probes - 1, probes)
+    finished = going & ((m_probes <= 0) | ~m_ok[:, 0])
+    improved = going & (m_ids[:, 0] != ids[:, 0])
+    m_improve = torch.where(improved, torch.as_tensor(hop, dtype=torch.int32, device=ids.device),
+                            improve_hop)
+    return m_ids, m_dists, m_flags, m_front, m_ok, m_probes, done | finished, m_improve
+
+
+def cuda_hop_update(
+    ids: torch.Tensor,
+    dists: torch.Tensor,
+    flags: torch.Tensor,
+    cand_ids: torch.Tensor,
+    cand_dists: torch.Tensor,
+    done: torch.Tensor,
+    frontier: torch.Tensor,
+    frontier_ok: torch.Tensor,
+    probes: torch.Tensor,
+    improve_hop: torch.Tensor,
+    hop,
+    all_done: Optional[torch.Tensor] = None,
+) -> HopUpdate:
+    """What :func:`plain_hop_update` returns, by one launch of the
+    queue-merge kernel (counted in ``LAUNCHES["queue_merge"]``), every
+    returned tensor updated in place.  ``hop`` is this hop's number, a host
+    integer or an int32 scalar on the device (a CUDA graph's hop counter,
+    read when the kernel runs).  ``all_done``, a bool scalar on the device,
+    is cleared where a row is still going after the hop: set before the
+    launch (``cuda_gather.cuda_hop_expand`` sets it), it then reads whether
+    every row is done."""
+    _check(ids, dists, flags, cand_ids, cand_dists, done, frontier, frontier_ok)
+    _check_accounting(done, probes, improve_hop, hop)
+    if all_done is not None and (all_done.dtype != torch.bool or all_done.shape != ()):
+        raise ValueError(f"need all_done: a bool scalar, got {all_done.dtype} {tuple(all_done.shape)}")
+    _launch("cuda_hop_update", ids, dists, flags, cand_ids, cand_dists, done, None, frontier,
+            frontier_ok, (probes, improve_hop, hop, all_done))
+    return ids, dists, flags, frontier, frontier_ok, probes, done, improve_hop
 
 
 def queue_update(

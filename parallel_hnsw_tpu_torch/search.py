@@ -7,26 +7,33 @@ a sorted candidate queue; give up after ``probe_depth`` non-improving pops.
 All queries of a block run in lockstep.  Per query the state is a
 fixed-capacity sorted candidate queue with an "expanded" bit per slot; one
 *hop* expands the ``beam_width`` nearest unexpanded candidates, gathers their
-neighbor rows (the hand-written row-gather kernel on a CUDA source), computes
-the distances of the neighbors' feature rows to the query in one
-gather-and-distance kernel (the rows are never written out; on the CPU its
-plain version, a gather and one batched contraction), and merges them into
-the queue.  The merge also finds the next hop's frontier, which the state
-carries: on the card both are one kernel that updates the queue in place
-(``ops/cuda_queues``; on the CPU its plain version, a masked sort).  The hop
-loop runs on the host and reads
-``done.all()`` after every hop (the JAX package keeps it inside
-``lax.while_loop``); the instrumentation counters stay on the device.  On the
-card a long layer search replays its hop from a CUDA graph, one launch a hop
-(:mod:`parallel_hnsw_tpu_torch.hop_graph`), with the same results.
+neighbor rows, computes the distances of the neighbors' feature rows to the
+query, and merges them into the queue.  The merge also finds the next hop's
+frontier, which the state carries, and the hop ends with the termination
+accounting.  On the card, over a dense source or a hop slab
+(``hop_graph.fuses``), a hop is two hand-written launches that update the
+state in place: ``cuda_gather.cuda_hop_expand`` (frontier, neighbor rows,
+distances) and ``cuda_queues.cuda_hop_update`` (the merge, the frontier and
+the accounting).  Elsewhere (the CPU, memmap, PQ and user sources) it is
+torch operations around the row-gather kernel, ``source_distance`` (the
+gather-and-distance kernel where the rows are one tensor on the card) and
+the queue update (``ops/cuda_queues``; on the CPU its plain version, a
+masked sort); the two give the same state, bit for bit.  The hop loop runs
+on the host and reads ``done.all()`` after every hop (the JAX package keeps
+it inside ``lax.while_loop``); the instrumentation counters stay on the
+device.  On the card a long layer search replays its hop from a CUDA graph,
+one graph launch a hop (:mod:`parallel_hnsw_tpu_torch.hop_graph`), with the
+same results.
 
 With ``TRACER`` enabled, each layer search is one ``search_layer`` span with
 the counters ``layer`` (from the top), ``queries`` (rows of the block),
 ``hops``, ``dispatch_s`` (host seconds in the hop bodies, graph launches and
 captures), ``wait_s`` (host seconds in the termination reads, which wait for
 the card), ``graph_hops`` (hops replayed from a graph), ``captures``
-(graphs captured) and ``merge_kernel_hops`` (hops whose queue update ran the
-queue-merge kernel, eager or replayed: the launches counted over the span).
+(graphs captured), ``merge_kernel_hops`` (hops whose queue update ran the
+queue-merge kernel, eager or replayed: the launches counted over the span)
+and ``fused_hops`` (hops that ran as the two hop launches: the expand
+kernel's launches counted over the span).
 """
 
 from __future__ import annotations
@@ -47,9 +54,9 @@ from parallel_hnsw_tpu_torch.graph import (
     source_get,
     vec_to_node,
 )
-from parallel_hnsw_tpu_torch.ops import cuda_queues
-from parallel_hnsw_tpu_torch.ops.cuda_gather import gather_distance, row_gather
-from parallel_hnsw_tpu_torch.ops.cuda_queues import queue_update
+from parallel_hnsw_tpu_torch.ops import cuda_gather, cuda_queues
+from parallel_hnsw_tpu_torch.ops.cuda_gather import cuda_hop_expand, gather_distance, row_gather
+from parallel_hnsw_tpu_torch.ops.cuda_queues import cuda_hop_update, queue_update
 from parallel_hnsw_tpu_torch.ops.distance import Metric, distance_one
 from parallel_hnsw_tpu_torch.ops.queues import (
     empty_queue,
@@ -89,6 +96,7 @@ def _layer_step_fns(
     beam_width: int,
     max_hops: int,
     slab: Optional[torch.Tensor] = None,
+    all_done: Optional[torch.Tensor] = None,
 ) -> Tuple[Callable[[LayerSearchState], bool], Callable[[LayerSearchState], LayerSearchState]]:
     """The (cond, body) of the per-layer expansion loop; shared by the
     one-shot search and the resumable host-driven advance.
@@ -97,7 +105,15 @@ def _layer_step_fns(
     (``slab[n, j]`` = features of ``layer.neighbors[n, j]``): the hop then
     gathers ONE slab row per expanded node instead of M feature rows, at the
     price of M-fold feature duplication in device memory (see
-    ``routing.build_hop_slabs`` for the memory budget)."""
+    ``routing.build_hop_slabs`` for the memory budget).
+
+    The body is the two hop launches where ``hop_graph.fuses`` says so, else
+    torch operations around three kernels (the module docstring).  The two
+    launches update the state in place, and a state whose ``hops`` is a
+    device counter (a CUDA graph's) has it advanced.  ``all_done``, a bool
+    scalar on the device that only the two launches take, is left reading
+    whether every row is done after the hop (the flag a graph's host
+    reads)."""
     q_count = queries.shape[0]
     neighbors = layer.neighbors.contiguous()  # no copy unless the layer holds a view
     n, m = neighbors.shape
@@ -105,6 +121,25 @@ def _layer_step_fns(
 
     def cond(state: LayerSearchState) -> bool:
         return state.hops < max_hops and not bool(state.done.all())
+
+    if hop_graph.fuses(queries.device.type, hop_graph.source_kind(source, slab)):
+        table = slab if slab is not None else source.vectors
+        nodes = None if slab is not None else layer.nodes
+
+        def fused(state: LayerSearchState) -> LayerSearchState:
+            ids, dists, expanded, probes, done, hops, evals, improve_hop, frontier, frontier_ok = state
+            counter = hops if isinstance(hops, torch.Tensor) else None
+            _, cand_ids, cand_dists, _ = cuda_hop_expand(
+                queries, table, nodes, neighbors, ids, expanded, frontier, frontier_ok, done, evals,
+                metric, counter=counter, all_done=all_done,
+            )
+            # the counter is this hop's number once the expand has advanced it
+            number = counter if counter is not None else hops + 1
+            cuda_hop_update(ids, dists, expanded, cand_ids, cand_dists, done, frontier, frontier_ok,
+                            probes, improve_hop, number, all_done=all_done)
+            return state._replace(hops=number)
+
+        return cond, fused
 
     def body(state: LayerSearchState) -> LayerSearchState:
         ids, dists, expanded, probes, done, hops, evals, improve_hop, frontier, frontier_ok = state
@@ -220,8 +255,9 @@ def search_one_layer(
     def new_graph() -> hop_graph.HopGraph:
         static_queries = torch.empty_like(queries, memory_format=torch.contiguous_format)
         return hop_graph.HopGraph(
-            lambda: _layer_step_fns(
-                layer, source, metric, static_queries, cap, beam_width, max_hops, slab=slab
+            lambda all_done: _layer_step_fns(
+                layer, source, metric, static_queries, cap, beam_width, max_hops, slab=slab,
+                all_done=all_done,
             )[1],
             state,
             static_queries,
@@ -256,10 +292,12 @@ def _layer_span(layer_index: int, q_count: int, run: Callable):
     clock = [0.0, 0.0]
     with TRACER.span("search_layer", layer=layer_index, queries=q_count) as closing:
         merges = cuda_queues.LAUNCHES["queue_merge"]
+        expands = cuda_gather.LAUNCHES["hop_expand"]
         out, hops, graph_hops, captures = run(clock)
         closing.update(hops=hops, dispatch_s=clock[0], wait_s=clock[1],
                        graph_hops=graph_hops, captures=captures,
-                       merge_kernel_hops=cuda_queues.LAUNCHES["queue_merge"] - merges)
+                       merge_kernel_hops=cuda_queues.LAUNCHES["queue_merge"] - merges,
+                       fused_hops=cuda_gather.LAUNCHES["hop_expand"] - expands)
     return out
 
 

@@ -53,6 +53,18 @@ def test_capture_rule(device_type, kind, rows, hops_run, captures):
     assert hop_graph.should_capture(device_type, kind, rows, hops_run) is captures
 
 
+@pytest.mark.parametrize("device_type, kind, fuses", [
+    ("cuda", "dense", True), ("cuda", "slab", True), ("cuda", "memmap", False),
+    ("cuda", "pq", False), ("cuda", "other", False), ("cpu", "dense", False),
+    ("cpu", "slab", False),
+])
+def test_fuse_rule(device_type, kind, fuses):
+    """The two-launch hop: a dense source or a hop slab on the card; every
+    hop the graph captures is one."""
+    assert hop_graph.fuses(device_type, kind) is fuses
+    assert not hop_graph.should_capture(device_type, kind, 100, K) or fuses
+
+
 def test_source_kinds():
     vecs = torch.zeros(4, 2)
     assert hop_graph.source_kind(DenseSource(vecs), None) == "dense"
@@ -154,37 +166,64 @@ class _CpuGraph:
         return None
 
 
+def _cpu_state(q: int = 2, cap: int = 4) -> LayerSearchState:
+    """A layer search's state on the CPU, at hop 3."""
+    return LayerSearchState(torch.zeros(q, cap, dtype=torch.int32), torch.zeros(q, cap),
+                            torch.zeros(q, cap, dtype=torch.int32), torch.ones(q, dtype=torch.int32),
+                            torch.zeros(q, dtype=torch.bool), 3, torch.zeros((), dtype=torch.int64),
+                            torch.zeros(q, dtype=torch.int32), torch.zeros(q, 2, dtype=torch.int64),
+                            torch.zeros(q, 2, dtype=torch.bool))
+
+
 def test_a_capture_counts_no_launch_and_each_replay_its_own(monkeypatch):
     """The launch counters count launches on the card: none at capture, the
-    capture's at each replay; and the graph keeps no hop that read the
-    layer's tensors."""
+    capture's at each replay; the graph keeps no hop that read the layer's
+    tensors; the body is handed the graph's ``all_done`` flag and advances
+    the buffers in place."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _CpuGraph)
-    def make_body():
+    flags = []
+
+    def make_body(all_done):
+        flags.append(all_done)
+
         def body(state):
-            cuda_gather.LAUNCHES["row_gather"] += 1
+            cuda_gather.LAUNCHES["hop_expand"] += 1
             cuda_gather.LAUNCHES["gather_distance"] += 2
-            return state._replace(hops=state.hops + 1)
+            all_done.fill_(True)
+            state.hops.add_(1)
+            return state
         return body
 
-    q, cap = 2, 4
-    state = LayerSearchState(torch.zeros(q, cap, dtype=torch.int32), torch.zeros(q, cap),
-                             torch.zeros(q, cap, dtype=torch.int32), torch.ones(q, dtype=torch.int32),
-                             torch.zeros(q, dtype=torch.bool), 3, torch.zeros((), dtype=torch.int64),
-                             torch.zeros(q, dtype=torch.int32), torch.zeros(q, 2, dtype=torch.int64),
-                             torch.zeros(q, 2, dtype=torch.bool))
+    q, state = 2, _cpu_state()
     graph = hop_graph.HopGraph(make_body, state, torch.zeros(q, 5))
     graph.load(state, torch.ones(q, 5))
+    assert not bool(graph.all_done)
     before = dict(cuda_gather.LAUNCHES)
     graph.capture(None)
     assert cuda_gather.LAUNCHES == before
-    assert graph.launches[-1] == {"row_gather": 1, "gather_distance": 2}
+    assert graph.launches[-1] == {"hop_expand": 1, "gather_distance": 2}
     assert graph._body is None and graph._make_body is None
+    assert len(flags) == 1 and flags[0] is graph.all_done
     for _ in range(3):
         graph.replay()
-    assert cuda_gather.LAUNCHES == {"row_gather": before["row_gather"] + 3,
+    assert cuda_gather.LAUNCHES == {**before, "hop_expand": before["hop_expand"] + 3,
                                     "gather_distance": before["gather_distance"] + 6}
     # the capture ran the hop once on the CPU's stand-in: the counter moved
     assert int(graph.buffers.hops) == 4 and graph.state(9).hops == 9
+    assert bool(graph.all_done)
+
+
+def test_a_hop_that_returns_new_tensors_is_refused(monkeypatch):
+    """A replay copies nothing, so a body that leaves a buffer as it was and
+    returns its result in a new tensor cannot be captured."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _CpuGraph)
+    q, state = 2, _cpu_state()
+    graph = hop_graph.HopGraph(
+        lambda all_done: lambda s: s._replace(hops=s.hops + 1), state, torch.zeros(q, 5))
+    graph.load(state, torch.ones(q, 5))
+    with pytest.raises(RuntimeError, match="in place"):
+        graph.capture(None)
+    assert int(graph.buffers.hops) == 3
 
 
 # -- on the card ----------------------------------------------------------------
@@ -362,8 +401,9 @@ def test_memmap_sources_and_large_blocks_stay_eager(device, card_index, fresh_gr
 
 @pytest.mark.cuda
 def test_replayed_hops_count_their_launches(device, card_index, fresh_graphs):
-    """``gather_distance`` once a hop and ``row_gather`` once a hop and once
-    for the entry vector, replayed hops included."""
+    """The hop's expand kernel once a hop, replayed hops included, and
+    ``row_gather`` once for the entry vector: the hop runs neither
+    ``gather_distance`` nor ``row_gather``."""
     hnsw, queries = card_index
     q = queries[:100]
     for call in range(2):  # the first captures, the second replays from the first hop
@@ -374,7 +414,7 @@ def test_replayed_hops_count_their_launches(device, card_index, fresh_graphs):
         hops = sum(h for h, _, _ in spans)
         captures = sum(c for _, _, c in spans)
         assert sum(g for _, g, _ in spans) > 0 and (captures > 0 if call == 0 else captures == 0)
-        assert ran == {"gather_distance": hops, "row_gather": hops + 1}
+        assert ran == {"gather_distance": 0, "row_gather": 1, "hop_expand": hops}
 
 
 @pytest.mark.cuda
@@ -402,9 +442,9 @@ def test_every_hop_runs_the_merge_kernel(device, card_index, fresh_graphs):
 @pytest.mark.cuda
 def test_layer_search_equals_the_plain_update_on_the_card(device, card_index, fresh_graphs,
                                                           monkeypatch):
-    """Every field of the bottom layer's final state, with the hop's queue
-    update by the kernel (eager, and replayed) and by its plain version on
-    the same CUDA tensors."""
+    """Every field of the bottom layer's final state, with the hop as its
+    two kernels (eager, and replayed) and as the torch hop whose queue
+    update is the plain version, on the same CUDA tensors."""
     from parallel_hnsw_tpu_torch import search as search_module
     from parallel_hnsw_tpu_torch.search import _entry_seed, _enter_layer, search_one_layer
 
@@ -418,6 +458,7 @@ def test_layer_search_equals_the_plain_update_on_the_card(device, card_index, fr
 
     with monkeypatch.context() as m:
         m.setattr(search_module, "queue_update", cuda_queues.plain_queue_update)
+        m.setattr(hop_graph, "fuses", lambda device_type, kind: False)
         before = cuda_queues.LAUNCHES["queue_merge"]
         want = _eager(monkeypatch, run)
         assert cuda_queues.LAUNCHES["queue_merge"] == before

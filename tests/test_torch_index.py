@@ -404,10 +404,10 @@ def test_build_spans_carry_their_counters():
                for e in relinks)
     layers = [e for e in events if e.name == "search_layer"]
     assert all(set(e.counters) == {"layer", "queries", "hops", "dispatch_s", "wait_s", "graph_hops",
-                                   "captures", "merge_kernel_hops"} for e in layers)
-    # on the CPU every hop is eager, and merges by the plain version
-    assert all(e.counters["graph_hops"] == e.counters["captures"] == e.counters["merge_kernel_hops"] == 0
-               for e in layers)
+                                   "captures", "merge_kernel_hops", "fused_hops"} for e in layers)
+    # on the CPU every hop is eager, the torch hop, and merges by the plain version
+    assert all(e.counters["graph_hops"] == e.counters["captures"] == e.counters["merge_kernel_hops"]
+               == e.counters["fused_hops"] == 0 for e in layers)
     assert any(e.depth > 0 for e in layers)
 
 

@@ -293,14 +293,15 @@ def test_layer_spans_count_the_hops_of_one_block(exact_graphs):
 
 
 def test_layer_spans_count_no_merge_kernel_hop_on_the_cpu(exact_graphs):
-    """A CPU tensor's hops merge by the plain version: ``merge_kernel_hops``
-    is on every span, and 0."""
+    """A CPU tensor's hops merge by the plain version and run as the torch
+    hop: ``merge_kernel_hops`` and ``fused_hops`` are on every span, and 0."""
     _, te, queries = exact_graphs
     q = torch.from_numpy(queries)
     for adaptive in (False, True):
         _, events = _layer_spans(lambda: search(te.layers, te.source, te.metric, q, SP_EXACT,
                                                 adaptive=adaptive))
-        assert events and all(e.counters["merge_kernel_hops"] == 0 for e in events)
+        assert events and all(e.counters["merge_kernel_hops"] == e.counters["fused_hops"] == 0
+                              for e in events)
         assert sum(e.counters["hops"] for e in events) > 0
 
 
@@ -343,13 +344,53 @@ class _Replayer:
         return None
 
 
+def _expand_in_place(queries, table, nodes, neighbors, ids, expanded, frontier, frontier_ok, done,
+                     evals, metric, counter=None, all_done=None):
+    """``cuda_hop_expand``'s contract on the CPU, by its plain version:
+    ``expanded`` and ``evals`` updated in place, the counter advanced, the
+    flag set."""
+    from parallel_hnsw_tpu_torch.ops.cuda_gather import plain_hop_expand
+
+    flags, cand_ids, cand_dists, n = plain_hop_expand(
+        queries, table, nodes, neighbors, ids, expanded, frontier, frontier_ok, done, evals, metric)
+    expanded.copy_(flags)
+    evals.copy_(n)
+    if counter is not None:
+        counter.add_(1)
+    if all_done is not None:
+        all_done.fill_(True)
+    return expanded, cand_ids, cand_dists, evals
+
+
+def _update_in_place(ids, dists, flags, cand_ids, cand_dists, done, frontier, frontier_ok, probes,
+                     improve_hop, hop, all_done=None):
+    """``cuda_hop_update``'s contract on the CPU, by its plain version: the
+    state updated in place, the flag cleared where a row is still going."""
+    from parallel_hnsw_tpu_torch.ops.cuda_queues import plain_hop_update
+
+    state = (ids, dists, flags, frontier, frontier_ok, probes, done, improve_hop)
+    new = plain_hop_update(ids, dists, flags, cand_ids, cand_dists, done, frontier, frontier_ok,
+                           probes, improve_hop, hop)
+    for buf, value in zip(state, new):
+        buf.copy_(value)
+    if all_done is not None:
+        all_done.logical_and_(done.all())
+    return state
+
+
 @pytest.fixture
 def replayed(monkeypatch):
-    """The graph path on the CPU: the capture rule without its device check,
-    a capture that keeps the hop (``HopGraph.step``, the function a CUDA
-    graph captures) for each replay, and an empty cache for the test."""
+    """The graph path on the CPU: the two-launch hop, its kernels standing
+    in by their plain versions updating in place, and the capture rule,
+    both without their device check; a capture that keeps the hop
+    (``HopGraph.step``, the function a CUDA graph captures) for each replay;
+    and an empty cache for the test."""
     from parallel_hnsw_tpu_torch import hop_graph
+    from parallel_hnsw_tpu_torch import search as search_module
 
+    monkeypatch.setattr(hop_graph, "fuses", lambda device_type, kind: kind in hop_graph.GRAPH_KINDS)
+    monkeypatch.setattr(search_module, "cuda_hop_expand", _expand_in_place)
+    monkeypatch.setattr(search_module, "cuda_hop_update", _update_in_place)
     monkeypatch.setattr(hop_graph, "should_capture", lambda device_type, kind, rows, hops_run: (
         kind in hop_graph.GRAPH_KINDS and 0 < rows <= hop_graph.MAX_GRAPH_ROWS
         and hops_run >= hop_graph.CAPTURE_AFTER_HOPS))
